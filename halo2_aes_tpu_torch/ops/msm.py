@@ -1,0 +1,272 @@
+"""Multi-scalar multiplication: the port of ``ops/msm.py``.
+
+The reference's dyadic-tree + Fenwick algorithm, kept so its pieces can
+be held against the reference: per window, sort (digit, index) keys,
+fold the digit-sorted points up a binary tree of complete adds (one
+batched ``curve.add`` per level over all windows), assemble every
+bucket prefix C_b from <= log2(n)+1 tree nodes, and telescope
+sum_b b * D_b = (B-1) * C_{B-1} - sum_{b<B-1} C_b.  With the
+2^(cw)-shifted window tables of ``build_tables`` the windows need no
+Horner doubling chain.  Affine results are unique, so a bucket
+Pippenger can replace this later without changing any proof byte.
+
+Scalars are PLAIN (non-Montgomery) Fr limbs; points are affine
+Montgomery Fq limb tensors (no identities).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from halo2_aes_tpu_torch.ops import curve as CV
+from halo2_aes_tpu_torch.ops import field as F
+
+SCALAR_BITS = 254
+_GROUP_BUDGET = 1 << 20
+
+
+def _group_budget(n_pad: int) -> int:
+    """Max gathered rows (windows x n_pad) per window group."""
+    return (1 << 23) if n_pad <= (1 << 17) else _GROUP_BUDGET
+
+
+def default_window(n: int) -> int:
+    """Window size minimizing W*(n + B*(log2 n + 2)) tree+extract adds."""
+    lg = max(1, int(np.ceil(np.log2(max(n, 2)))))
+    best, best_cost = 8, None
+    for c in range(6, 17):
+        if c + lg > 32:
+            continue
+        w = -(-SCALAR_BITS // c)
+        cost = w * (n + (1 << c) * (lg + 2))
+        if best_cost is None or cost < best_cost:
+            best, best_cost = c, cost
+    return best
+
+
+def digit_matrix(scalars, c: int):
+    """(n, 16) plain limbs -> (windows, n) int64 window digits, LSB first."""
+    s = scalars.to(torch.int64)
+    windows = -(-SCALAR_BITS // c)
+    mask = (1 << c) - 1
+    rows = []
+    for w in range(windows):
+        start = w * c
+        l, off = divmod(start, F.LIMB_BITS)
+        v = s[..., l] >> off
+        got = F.LIMB_BITS - off
+        while got < c and l + 1 < F.LIMBS:
+            l += 1
+            v = v | (s[..., l] << got)
+            got += F.LIMB_BITS
+        rows.append(v & mask)
+    return torch.stack(rows)
+
+
+def _tree_add(pts):
+    """Fold a stacked point triple (m, ..., 16) down axis 0."""
+    x, y, z = pts
+    m = x.shape[0]
+    while m > 1:
+        half = m // 2
+        s = CV.add((x[:half], y[:half], z[:half]),
+                   (x[half:2 * half], y[half:2 * half], z[half:2 * half]))
+        x = torch.cat([s[0], x[2 * half:]])
+        y = torch.cat([s[1], y[2 * half:]])
+        z = torch.cat([s[2], z[2 * half:]])
+        m = x.shape[0]
+    return (x[0], y[0], z[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _bitrev_np(lg: int) -> np.ndarray:
+    n = 1 << lg
+    idx = np.arange(n)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(lg):
+        rev |= ((idx >> b) & 1) << (lg - 1 - b)
+    return rev
+
+
+@functools.lru_cache(maxsize=None)
+def _bitrev(lg: int, device) -> torch.Tensor:
+    return torch.from_numpy(_bitrev_np(lg)).to(device)
+
+
+def _double_n(p, times: int):
+    for _ in range(times):
+        p = CV.double(p)
+    return p
+
+
+def _window_sums(px, py, digs, c: int, n_real: int, tables=None, tbase=None):
+    """Per-window bucket-weighted sums S_w = sum_b b * bucket_b.
+
+    px/py: (n_pad, 16) affine points shared by every window, or
+    ``tables`` (W*n, 32) per-window affine rows with ``tbase`` (G,)
+    window indices.  digs: (G, n_pad) digits (padding rows carry digit
+    0 and are masked to the identity).  Returns (x, y, z) each (G, 16)."""
+    G, n_pad = digs.shape
+    lg = n_pad.bit_length() - 1
+    assert 1 << lg == n_pad
+    dev = digs.device
+    buckets = 1 << c
+    one = F.const(CV.FQ, "one", dev)
+    ident = CV.identity(device=dev)
+
+    iota = torch.arange(n_pad, dtype=torch.int64, device=dev)
+    keys = torch.sort((digs << lg) | iota[None, :], dim=1).values
+    ds = (keys >> lg).contiguous()
+    order = keys & (n_pad - 1)
+    order_br = order[:, _bitrev(lg, dev)]
+
+    if tables is None:
+        sxy = torch.cat([px, py], dim=1)[order_br.reshape(-1)]
+    else:
+        t3 = tables.reshape(-1, n_pad, 2 * F.LIMBS)
+        sxy = t3[tbase[:, None], order_br].reshape(G * n_pad, 2 * F.LIMBS)
+    live = (order_br < n_real).reshape(-1, 1)
+    sx = torch.where(live, sxy[:, :F.LIMBS], 0)
+    sy = torch.where(live, sxy[:, F.LIMBS:], one)
+    sz = torch.where(live, one, 0)
+
+    def fold_halves(cur, m):
+        half = m // 2
+        lo = tuple(t.reshape(G, m, F.LIMBS)[:, :half].reshape(G * half, F.LIMBS)
+                   for t in cur)
+        hi = tuple(t.reshape(G, m, F.LIMBS)[:, half:].reshape(G * half, F.LIMBS)
+                   for t in cur)
+        return CV.add(lo, hi)
+
+    # up-sweep: level l holds G * (n_pad >> l) nodes in bit-reversed order
+    levels = [(sx, sy, sz)]
+    cur = levels[0]
+    m = n_pad
+    while m > 1:
+        cur = fold_halves(cur, m)
+        m //= 2
+        levels.append(cur)
+    root = cur
+
+    # Fenwick extraction of C_b = sum of the first m_b sorted points
+    bvals = torch.arange(buckets, dtype=torch.int64, device=dev)
+    mcounts = torch.searchsorted(ds, bvals.expand(G, buckets).contiguous(),
+                                 right=True)
+    gofs = torch.arange(G, dtype=torch.int64, device=dev)[:, None]
+    acc = tuple(t.expand(G * buckets, F.LIMBS) for t in ident)
+    for lvl in range(len(levels)):
+        m_lvl = n_pad >> lvl
+        bit = (((mcounts >> lvl) & 1) == 1).reshape(-1)
+        idx = ((mcounts >> (lvl + 1)) << 1).clamp(0, m_lvl - 1)
+        idx = _bitrev(lg - lvl, dev)[idx]
+        flat = (gofs * m_lvl + idx).reshape(-1)
+        node = tuple(F.select(bit, t[flat], i) for t, i in zip(levels[lvl], ident))
+        acc = CV.add(acc, node)
+
+    # sum_b b*D_b = (B-1)*C_{B-1} - sum_{b<B-1} C_b ; C_{B-1} = root
+    last = (torch.arange(G * buckets, device=dev) % buckets) == buckets - 1
+    cur = tuple(F.select(last, i, a) for a, i in zip(acc, ident))
+    m = buckets
+    while m > 1:
+        cur = fold_halves(cur, m)
+        m //= 2
+    scaled = CV.add(_double_n(root, c), CV.neg(root))
+    return CV.add(scaled, CV.neg(cur))
+
+
+def build_tables(points, c: int):
+    """Affine window tables T[w][i] = 2^{cw} * P_i as ONE interleaved
+    (W*n, 32) int32 tensor (x limbs in [0,16), y in [16,32); window w at
+    rows [w*n, (w+1)*n)), on the points' device.  One batched inversion
+    normalises every window (affine coordinates are unique, so this
+    equals the reference's per-window normalisation)."""
+    px, py = points
+    n = px.shape[0]
+    W = -(-SCALAR_BITS // c)
+    cur = CV.affine_to_proj((px, py))
+    xs, ys, zs = [], [], []
+    for w in range(W):
+        if w:
+            cur = _double_n(cur, c)
+        xs.append(cur[0])
+        ys.append(cur[1])
+        zs.append(cur[2])
+    zinv = F.batch_inv(CV.FQ, torch.cat(zs))
+    ax = F.mont_mul(CV.FQ, torch.cat(xs), zinv)
+    ay = F.mont_mul(CV.FQ, torch.cat(ys), zinv)
+    assert ax.shape[0] == W * n
+    return torch.cat([ax, ay], dim=1)
+
+
+def msm(points, scalars, c: int | None = None, tables=None):
+    """sum_i scalars[i] * points[i] -> projective (3 x (16,)) Montgomery.
+
+    points: (x, y) affine Montgomery limb tensors, each (n, 16);
+    scalars: (n, 16) PLAIN Fr limbs; tables: optional ``build_tables``
+    output (n a power of two): windows come pre-scaled, no Horner fold."""
+    px, py = points
+    n = px.shape[0]
+    if c is None:
+        c = default_window(n)
+    n_pad = max(2, 1 << (n - 1).bit_length())
+    digs = digit_matrix(scalars, c)
+    W = digs.shape[0]
+    if n_pad != n:
+        assert tables is None, "tables require power-of-two n"
+        px = torch.nn.functional.pad(px, (0, 0, 0, n_pad - n))
+        py = torch.nn.functional.pad(py, (0, 0, 0, n_pad - n))
+        digs = torch.nn.functional.pad(digs, (0, n_pad - n))
+    if tables is not None:
+        assert tables.shape == (W * n, 2 * F.LIMBS)
+
+    group = max(1, min(W, _group_budget(n_pad) // n_pad))
+    n_groups = -(-W // group)
+    group = -(-W // n_groups)
+    if n_groups * group != W:
+        digs = torch.nn.functional.pad(digs, (0, 0, 0, n_groups * group - W))
+    wbase = torch.arange(n_groups * group, device=digs.device).clamp(0, W - 1)
+    sums = [_window_sums(px, py, digs[g * group:(g + 1) * group], c, n,
+                         tables=tables,
+                         tbase=wbase[g * group:(g + 1) * group])
+            for g in range(n_groups)]
+    sx, sy, sz = (torch.cat([s[i] for s in sums]) for i in range(3))
+    if tables is not None:
+        return _tree_add((sx, sy, sz))
+    acc = CV.identity(device=px.device)
+    for i in range(W):
+        w = W - 1 - i
+        acc = CV.add(_double_n(acc, c), (sx[w], sy[w], sz[w]))
+    return acc
+
+
+def msm_many(points, scalars_flat, count: int, c: int, tables):
+    """``count`` MSMs over the SAME points in one pass: scalars_flat is
+    FLAT (count*n, 16) plain Fr limbs (commitment i at rows
+    [i*n, (i+1)*n)).  Every commitment's windows join one window axis,
+    so each tree level is one batched add for all of them.  Requires
+    the shifted window ``tables`` and power-of-two n.  Returns a
+    projective triple of (count, 16) tensors."""
+    px, py = points
+    n = px.shape[0]
+    assert n & (n - 1) == 0, "tables require power-of-two n"
+    W = -(-SCALAR_BITS // c)
+    assert tables.shape == (W * n, 2 * F.LIMBS)
+    digs = torch.cat([digit_matrix(scalars_flat[i * n:(i + 1) * n], c)
+                      for i in range(count)])                 # (count*W, n)
+    total = count * W
+    group = max(1, min(total, _group_budget(n) // n))
+    n_groups = -(-total // group)
+    group = -(-total // n_groups)
+    if n_groups * group != total:
+        digs = torch.nn.functional.pad(digs, (0, 0, 0, n_groups * group - total))
+    wbase = torch.arange(n_groups * group, device=digs.device) % W
+    sums = [_window_sums(px, py, digs[g * group:(g + 1) * group], c, n,
+                         tables=tables, tbase=wbase[g * group:(g + 1) * group])
+            for g in range(n_groups)]
+    # (count*W,) window sums, commit-major -> fold each commit's W windows
+    return _tree_add(tuple(
+        torch.cat([s[i] for s in sums])[:total].reshape(count, W, F.LIMBS)
+        .transpose(0, 1) for i in range(3)))
