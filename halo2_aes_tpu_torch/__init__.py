@@ -1,10 +1,12 @@
 """halo2_aes_tpu_torch: the AES-128 prove -> verify path in PyTorch.
 
-A second implementation of ``halo2_aes_tpu``'s main path (compile the
-AES circuit, SRS setup, keygen, witness, KZG/SHPLONK prove, verify) for
-one NVIDIA H100.  Plain tensor code is PyTorch; the three Pallas TPU
-kernels of that path are hand-written CUDA kernels under ``csrc/``
-(``ops/cuda_field.py``, ``ops/cuda_ntt.py``, ``ops/cuda_curve.py``).
+A second implementation of ``halo2_aes_tpu`` on one NVIDIA H100:
+compile the AES encryption or decryption circuit, SRS setup, keygen,
+witness, KZG prove with SHPLONK or GWC multiopen, verify, and AES-CTR
+keystream bundles (``ctr.py``).  Plain tensor code is PyTorch; every
+Pallas TPU kernel of the reference is a hand-written CUDA kernel under
+``csrc/`` (``ops/cuda_field.py``, ``ops/cuda_ntt.py``,
+``ops/cuda_curve.py``, and the probes' ``ops/cuda_probe.py``).
 
 Field elements cross every public function in the reference's layout:
 ``(..., 16)`` 16-bit limbs in Montgomery form (R = 2^256), stored as

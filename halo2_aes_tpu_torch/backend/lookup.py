@@ -1,10 +1,14 @@
 """Lookup argument (halo2 v0.3.0 style): permuted pairs + grand product
-(port of ``backend/lookup.py``, the batched field-order path).
+(port of ``backend/lookup.py``).
 
-Permuted pairs are ordered by the CANONICAL field value of the
-theta-compressed scalars (halo2's ``permute_expression_pair`` order):
-an LSD radix of stable argsorts over the eight 32-bit words, then
-scatter/compaction steps, all batched over the L lookups.
+Two orders of the permuted pairs:
+  * field (the default): by the CANONICAL field value of the
+    theta-compressed scalars (halo2's ``permute_expression_pair``
+    order): an LSD radix of stable argsorts over the eight 32-bit
+    words, then scatter/compaction steps, all batched over the L
+    lookups;
+  * packed: by a uint32 key packing up to four byte-ranged input
+    columns, against the table's host-sorted keys (``permuted_indices``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,38 @@ def _scatter_set(size: int, idx, vals, fill, dtype):
     out = torch.full((size + 1,), fill, dtype=dtype, device=idx.device)
     out.scatter_(0, idx.clamp(max=size), vals.to(dtype))
     return out[:size]
+
+
+def permuted_indices(packed_input, table_sorted, table_order, usable: int):
+    """Index-level permuted pair construction over rows [0, usable) on
+    packed keys.
+
+    ``packed_input``: int64 tensor of uint32 keys (rows >= usable are
+    ignored); ``table_sorted``/``table_order``: the TABLE's keys sorted
+    on the host and their argsort (int64 tensors).  Returns
+    (input_perm, table_perm) int64[usable]: A' = A[input_perm] is
+    grouped, S'[j] = A'[j] at each first occurrence, S' a permutation of
+    the table."""
+    dev = packed_input.device
+    a_order = torch.argsort(packed_input[:usable], stable=True)
+    a_sorted = packed_input[a_order]
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                       a_sorted[1:] != a_sorted[:-1]])
+    # one table slot per distinct input value
+    slots = torch.searchsorted(table_sorted, a_sorted)
+    used = _scatter_set(usable, torch.where(first, slots, usable), first,
+                        False, torch.bool)
+    # unused table rows, compacted in sorted-value order
+    rem = table_order[torch.argsort(used.to(torch.int64), stable=True)]
+    fill_rank = (torch.cumsum((~first).to(torch.int64), 0) - 1).clamp(min=0)
+    table_perm = torch.where(first, table_order[slots.clamp(0, usable - 1)],
+                             rem[fill_rank])
+    return a_order, table_perm
+
+
+def apply_permutation(field_col, perm, blinding):
+    """Gather field rows by perm and append the blinding tail."""
+    return torch.cat([field_col[perm], blinding])
 
 
 def permuted_indices_field_many(a_std, s_std, L: int, usable: int):

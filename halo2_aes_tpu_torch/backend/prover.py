@@ -1,15 +1,17 @@
-"""The KZG/SHPLONK prover (port of ``backend/prover.py``).
+"""The KZG prover with SHPLONK or GWC multiopen (port of
+``backend/prover.py``).
 
-The single-device, ``multiopen="shplonk"``, ``lookup_sort="field"``
-path of the reference for k <= 18, phase by phase and in the same
-transcript order, so that the same pk, witness and seed give the same
-proof bytes:
+The single-device path of the reference for k <= 18, with either
+multiopen (``"shplonk"``, ``"gwc"``) and either lookup order
+(``"field"``, ``"packed"``), phase by phase and in the same transcript
+order, so that the same pk, witness and seed give the same proof bytes:
 
   vk digest, instance values | advice commits | theta | per lookup:
   A'/S' commits | beta, gamma | permutation z commits | lookup z
   commits | random-poly commit | y | d-1 h piece commits | x | evals in
-  protocol.open_queries order (h skipped) | y2, v | SHPLONK h commit |
-  u | SHPLONK witness commit.
+  protocol.open_queries order (h skipped) | then SHPLONK: y2, v | h
+  commit | u | witness commit; or GWC: v | one witness commit per
+  rotation point.
 
 Every device tensor lives on the proving key's device.  Blinding
 randomness is a ``numpy.random.Generator`` drawn in the reference's
@@ -57,6 +59,58 @@ def _device_algebra(device):
         neg = staticmethod(lambda a: F.neg(FR, a))
 
     return DeviceAlgebra
+
+
+def _pack_u32(cols):
+    """Pack <= 4 byte-ranged columns into one sortable uint32 key (held
+    in int64).  The permuted-pair order is right only if each component
+    fits 8 bits; ``_check_lookup_packable`` guards the table side."""
+    assert len(cols) <= 4, "u32 packing supports at most 4 lookup pairs"
+    key = torch.zeros_like(cols[0])
+    for c in cols:
+        key = ((key << 8) | (c & 0xFFFFFFFF)) & 0xFFFFFFFF
+    return key
+
+
+def _table_sort(layout, lk_index: int, usable: int):
+    """Host-sorted (keys, argsort) of a lookup's packed table, cached on
+    the layout: the table columns are fixed."""
+    cache = layout.meta.setdefault("_prover_table_sort", {})
+    if lk_index not in cache:
+        lk = layout.cs.lookups[lk_index]
+        key = np.zeros(usable, dtype=np.uint32)
+        for _, tc in lk.pairs:
+            key = (key << 8) | layout.fixed[tc][:usable].astype(np.uint32)
+        order = np.argsort(key, kind="stable")
+        cache[lk_index] = (key[order].astype(np.int64), order.astype(np.int64))
+    return cache[lk_index]
+
+
+def _check_lookup_packable(layout, lk):
+    """Every table column of the lookup is byte-ranged and there are at
+    most 4 pairs (honest inputs are table members, so the bound covers
+    them too)."""
+    if len(lk.pairs) > 4:
+        raise ValueError(f"lookup {lk.name!r} has {len(lk.pairs)} pairs; "
+                         "u32 packing supports at most 4")
+    for _, tc in lk.pairs:
+        hi = int(np.max(layout.fixed[tc]))
+        if hi >= 256:
+            raise ValueError(f"lookup {lk.name!r} table column {tc} holds "
+                             f"values up to {hi}; packed keys need bytes")
+
+
+class _IntAlg:
+    """Integer algebra for the packed keys (wraps like the reference's
+    int32 arithmetic once masked to 32 bits)."""
+
+    @staticmethod
+    def const(v):
+        return v
+
+    add = staticmethod(lambda a, b: a + b)
+    mul = staticmethod(lambda a, b: a * b)
+    neg = staticmethod(lambda a: -a)
 
 
 def _rand_field(rng, *shape) -> np.ndarray:
@@ -149,6 +203,7 @@ class _Phases:
         self.q_static_keys = skeys
         self.q_dyn_keys = dkeys
         self._static_evals = {}          # sub-coset s -> (S*n, 16)
+        self._packed_tables = {}         # lookup -> packed table sort
         self._delta_pows = F.limbs(
             FR.host_powers(PERM.delta(), len(cs.perm_columns)), self.dev)
         self.shp_sets = PROTO.rotation_sets(PROTO.open_queries(cs))
@@ -156,6 +211,15 @@ class _Phases:
 
     def tensor(self, arr):
         return F.limbs(arr, self.dev)
+
+    def _packed_table(self, li: int):
+        """(sorted keys, argsort) of lookup li's packed table on the device."""
+        out = self._packed_tables.get(li)
+        if out is None:
+            out = tuple(torch.as_tensor(a, device=self.dev)
+                        for a in _table_sort(self.layout, li, self.usable))
+            self._packed_tables[li] = out
+        return out
 
     def encode(self, v):
         return F.encode(FR, v, self.dev)
@@ -213,24 +277,44 @@ class _Phases:
                                       device=self.dev)
         return all_fld, adv_coeffs, inst_coeffs
 
-    # -- phase 2: lookup permuted pairs (field order) ----------------------
+    # -- phase 2: lookup permuted pairs ------------------------------------
 
-    def lookup_phase(self, all_fld, theta_m, bl_a, bl_s):
+    def lookup_phase(self, values, all_fld, theta_m, bl_a, bl_s,
+                     lookup_sort: str):
         u, L = self.usable, self.n_lk
         Ctx = self._column_ctx(all_fld, theta_m)
-        a_us = torch.cat([PROTO.compressed_input(Ctx, lk)[:u]
-                          for lk in self.cs.lookups])
-        s_us = torch.cat([PROTO.compressed_table(Ctx, lk)[:u]
-                          for lk in self.cs.lookups])
-        a_ord, t_perm = LK.permuted_indices_field_many(
-            F.from_mont(FR, a_us), F.from_mont(FR, s_us), L, u)
-        rowu = torch.arange(L, device=self.dev)[:, None] * u
-        a_pr = a_us[(a_ord + rowu).reshape(-1)]
-        s_pr = s_us[(t_perm + rowu).reshape(-1)]
-        a_prime = torch.cat([x for l in range(L)
-                             for x in (a_pr[l * u:(l + 1) * u], bl_a[l])])
-        s_prime = torch.cat([x for l in range(L)
-                             for x in (s_pr[l * u:(l + 1) * u], bl_s[l])])
+        if lookup_sort == "field":
+            a_us = torch.cat([PROTO.compressed_input(Ctx, lk)[:u]
+                              for lk in self.cs.lookups])
+            s_us = torch.cat([PROTO.compressed_table(Ctx, lk)[:u]
+                              for lk in self.cs.lookups])
+            a_ord, t_perm = LK.permuted_indices_field_many(
+                F.from_mont(FR, a_us), F.from_mont(FR, s_us), L, u)
+            rowu = torch.arange(L, device=self.dev)[:, None] * u
+            a_pr = a_us[(a_ord + rowu).reshape(-1)]
+            s_pr = s_us[(t_perm + rowu).reshape(-1)]
+            a_prime = torch.cat([x for l in range(L)
+                                 for x in (a_pr[l * u:(l + 1) * u], bl_a[l])])
+            s_prime = torch.cat([x for l in range(L)
+                                 for x in (s_pr[l * u:(l + 1) * u], bl_s[l])])
+        else:
+            def col_int(col, rot):
+                v = values[col].to(torch.int64)
+                return torch.roll(v, -rot, 0) if rot else v
+
+            a_primes, s_primes = [], []
+            for li, lk in enumerate(self.cs.lookups):
+                packed_a = _pack_u32([e.eval(_IntAlg, col_int)
+                                      for e, _ in lk.pairs])
+                t_sorted, t_order = self._packed_table(li)
+                a_ord, s_ord = LK.permuted_indices(packed_a, t_sorted,
+                                                   t_order, u)
+                a_primes.append(LK.apply_permutation(
+                    PROTO.compressed_input(Ctx, lk)[:u], a_ord, bl_a[li]))
+                s_primes.append(LK.apply_permutation(
+                    PROTO.compressed_table(Ctx, lk)[:u], s_ord, bl_s[li]))
+            a_prime = torch.cat(a_primes)
+            s_prime = torch.cat(s_primes)
         a_coeffs = self._ntt_many(a_prime, L, inverse=True)
         s_coeffs = self._ntt_many(s_prime, L, inverse=True)
         return a_prime, s_prime, a_coeffs, s_coeffs
@@ -380,6 +464,22 @@ class _Phases:
             out[dd:dd + n] = F.add(FR, out[dd:dd + n], terms[dd])
         return out
 
+    def gwc_witness(self, poly_flat, vpows, eval_m, z_m):
+        """One GWC opening witness W = [(F - F(z)) / (X - z)] where
+        F = sum_j v^j p_j over the polys opened at the point z; divided
+        on the base coset, which never meets z."""
+        n = self.n
+        acc = None
+        for q in range(vpows.shape[0]):
+            t = F.mont_mul(FR, poly_flat[q * n:(q + 1) * n], vpows[q])
+            acc = t if acc is None else F.add(FR, acc, t)
+        acc = acc.clone()
+        acc[0] = F.sub(FR, acc[0], eval_m)
+        l_ev = P.coset_evals(self.dom, acc)
+        den = F.sub(FR, _coset_points(self.k, self.dev), z_m)
+        return P.coset_interp(
+            self.dom, F.mont_mul(FR, l_ev, F.batch_inv(FR, den)))
+
     def hshp_blind_fix(self, h_shp, x_m, coef_m):
         """h_shp += coef * sum_i x^{n-1-i} X^i."""
         rev_pows = F.powers(FR, x_m, self.n).flip(0)
@@ -449,18 +549,25 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     of python ints.  ``seed`` selects a reproducible blinding stream
     (tests only; None draws from os.urandom).  Returns proof bytes.
 
-    Only the single-device KZG/SHPLONK path with field-ordered lookups
-    at k <= 18 is ported; the other options raise NotImplementedError."""
+    ``multiopen``: "shplonk" (default) or "gwc" (one witness per
+    rotation point).  ``lookup_sort``: "field" (default; halo2's order
+    by canonical field value) or "packed" (uint32 keys of byte-ranged
+    columns; other proof bytes, the same argument).  Single device and
+    k <= 18 only: ``mesh``, ``checkpoint_dir`` and larger k raise
+    NotImplementedError."""
     if mesh is not None:
-        raise NotImplementedError("mesh proving is not ported")
-    if multiopen != "shplonk":
-        raise NotImplementedError(f"multiopen={multiopen!r} is not ported")
-    if lookup_sort != "field":
-        raise NotImplementedError(f"lookup_sort={lookup_sort!r} is not ported")
+        raise NotImplementedError("mesh proving is not ported (ROADMAP A15)")
     if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoint/resume is not ported")
+        raise NotImplementedError("checkpoint/resume is not ported (ROADMAP A13)")
+    if multiopen not in ("shplonk", "gwc"):
+        raise ValueError(f"unknown multiopen {multiopen!r}")
+    if lookup_sort not in ("field", "packed"):
+        raise ValueError(f"unknown lookup_sort {lookup_sort!r}")
     if pk.vk.k > MAX_K:
         raise NotImplementedError(f"k={pk.vk.k} > {MAX_K} (sliced phases)")
+    if lookup_sort == "packed":
+        for lk in pk.vk.cs.lookups:
+            _check_lookup_packable(pk.layout, lk)
 
     ph = _get_phases(pk)
     vk, cs, layout = pk.vk, pk.vk.cs, pk.layout
@@ -506,7 +613,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
         bl_a = T(_rand_field(rng, ph.n_lk, n - usable))
         bl_s = T(_rand_field(rng, ph.n_lk, n - usable))
         lk_ap, lk_sp, lk_a_coeffs, lk_s_coeffs = ph.lookup_phase(
-            all_fld, theta_m, bl_a, bl_s)
+            values, all_fld, theta_m, bl_a, bl_s, lookup_sort)
         polys = []
         for i in range(ph.n_lk):       # transcript order: a'_i, s'_i
             polys += [lk_a_coeffs[i * n:(i + 1) * n], lk_s_coeffs[i * n:(i + 1) * n]]
@@ -634,6 +741,30 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     for key, rot in plan:
         if key[0] != "h":
             tr.write_scalar(evals[(key, rot)])
+
+    if multiopen == "gwc":
+        # GWC: queries grouped BY ROTATION POINT, one opening witness
+        # W_i = [(F_i - F_i(z_i)) / (X - z_i)] per point, v-power order =
+        # plan order at that point
+        v = tr.squeeze_challenge()
+        gn = pow(P.GEN, n, FR.modulus)    # X^n is constant on the base coset
+        for rot, keys in by_rot.items():
+            vp = np.zeros((len(keys), LIMBS), np.uint32)
+            acc = 1
+            ev = 0
+            for j, kk in enumerate(keys):
+                vp[j] = F.int_to_limbs(FR.to_mont_host(acc))
+                ev = (ev + acc * evals[(kk, rot)]) % FR.modulus
+                if kk == ("h",) and cn:
+                    # h'(X) - h'(z) carries the on-coset constant
+                    # v^j cn (g^n - x^n): fold it into the coefficient-0 term
+                    ev = (ev - acc * cn % FR.modulus * (gn - xn)) % FR.modulus
+                acc = acc * v % FR.modulus
+            stack = torch.cat([poly_coeffs(kk) for kk in keys])
+            w = ph.gwc_witness(stack, T(vp), enc(ev), enc(rot_point(rot)))
+            del stack
+            tr.write_point(commit_affine(pk.srs, w))
+        return tr.finalize()
 
     # ---- SHPLONK multiopen ----------------------------------------------------
     y2 = tr.squeeze_challenge()

@@ -1,9 +1,10 @@
-"""The two K=6 toy circuits whose proofs are the golden fixtures.
+"""The K=6 toy circuits whose proofs are the golden fixtures.
 
 Each circuit function takes the ``circuit.ir`` module to build with, so the same
 definition yields the reference package's circuit (for the fixture
 script) and this package's circuit (for the tests and the chip smoke).
-They match the toy circuits of ``tests/test_prove_verify.py``.
+The first two match the toy circuits of ``tests/test_prove_verify.py``;
+the third adds an instance column.
 """
 
 from __future__ import annotations
@@ -89,6 +90,64 @@ def tagged_toy_circuit(ir=None):
     return layout, values + fixed
 
 
-# name -> (circuit function, prove seed); the seeds are those of the reference's
-# own round-trip tests
-TOYS = {"toy": (toy_circuit, 42), "tagged": (tagged_toy_circuit, 11)}
+PUBLIC = [6, 5, 9]      # the instance toy's public values, rows 0..2
+
+
+def instance_toy_circuit(ir=None):
+    """An instance column ``pub`` in a gate and in a copy constraint:
+    q_mul * (a0 * a1 - pub) on rows 0 and 2, pub[1] == a0[4], and the
+    (a0, a1) lookup into (i, 7i mod 256) on rows 6 and 7.  The public
+    values pub[0:3] are ``PUBLIC``.  Returns (layout, values)."""
+    if ir is None:
+        from halo2_aes_tpu_torch.circuit import ir
+    n = 1 << K
+    cs = ir.ConstraintSystem()
+    q_mul = cs.fixed_column("q_mul")
+    q_lk = cs.fixed_column("q_lk")
+    t_in = cs.fixed_column("t_in")
+    t_out = cs.fixed_column("t_out")
+    a0 = cs.advice_column("a0")
+    a1 = cs.advice_column("a1")
+    pub = cs.instance_column("pub")
+    cs.create_gate("mul", ir.Prod(ir.Ref(q_mul), ir.Sum(
+        ir.Prod(ir.Ref(a0), ir.Ref(a1)), ir.Neg(ir.Ref(pub)))))
+    cs.add_lookup("mul7", [(ir.Prod(ir.Ref(q_lk), ir.Ref(a0)), t_in),
+                           (ir.Prod(ir.Ref(q_lk), ir.Ref(a1)), t_out)])
+    cs.enable_equality(a0)
+    cs.enable_equality(pub)
+
+    fixed = np.zeros((7, n), dtype=np.uint32)
+    fixed[t_in, :32] = np.arange(32)
+    fixed[t_out, :32] = (np.arange(32) * 7) % 256
+    values = np.zeros((7, n), dtype=np.uint32)
+    witness_map = np.full((7, n), -1, np.int32)
+    values[pub, :3] = PUBLIC
+    witness_map[pub, :3] = np.arange(3)           # the rows the proof exposes
+    fixed[q_mul, [0, 2]] = 1
+    values[a0, 0], values[a1, 0] = 2, 3           # 2 * 3 == pub[0]
+    values[a0, 2], values[a1, 2] = 3, 3           # 3 * 3 == pub[2]
+    values[a0, 4] = 5                             # == pub[1]
+    for row, x in [(6, 4), (7, 10)]:
+        fixed[q_lk, row] = 1
+        values[a0, row] = x
+        values[a1, row] = (x * 7) % 256
+    layout = ir.CompiledCircuit(
+        k=K, cs=cs, fixed=fixed, witness_map=witness_map,
+        copy_pairs=np.array([[pub, 1, a0, 4]], dtype=np.int32), pool_len=0)
+    return layout, values + fixed
+
+
+# name -> (circuit function, prove seed, public instances); the first two
+# seeds are those of the reference's own round-trip tests
+TOYS = {"toy": (toy_circuit, 42, []), "tagged": (tagged_toy_circuit, 11, []),
+        "instance": (instance_toy_circuit, 7, [PUBLIC])}
+
+# golden proof name -> (toy, prove options); the toys' own names prove
+# with the defaults (SHPLONK, field-ordered lookups)
+GOLDEN_PROOFS = {
+    **{name: (name, {}) for name in TOYS},
+    "toy_gwc": ("toy", {"multiopen": "gwc"}),
+    "tagged_gwc": ("tagged", {"multiopen": "gwc"}),
+    "toy_packed": ("toy", {"lookup_sort": "packed"}),
+    "tagged_packed": ("tagged", {"lookup_sort": "packed"}),
+}

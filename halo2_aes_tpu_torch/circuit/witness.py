@@ -1,6 +1,6 @@
 """Witness assembly: AES trace pool -> column value matrix (port of
-``circuit/witness.py``, encryption path): one batched AES trace plus
-one gather per the precomputed witness map."""
+``circuit/witness.py``): one batched AES trace, encryption or
+decryption, plus one gather per the precomputed witness map."""
 
 from __future__ import annotations
 
@@ -15,6 +15,14 @@ def build_pool(key, plaintexts):
     witness pool on their device."""
     ks_pool, rks = aes.expand_key(key)
     pools = aes.block_pool_batch(plaintexts, rks)
+    return torch.cat([ks_pool, pools.reshape(-1)])
+
+
+def build_dec_pool(key, ciphertexts):
+    """Decryption witness pool (``models/aes128_dec.py`` layout): the
+    same forward key expansion, then batched inverse-cipher traces."""
+    ks_pool, rks = aes.expand_key(key)
+    pools = aes.dec_block_pool_batch(ciphertexts, rks)
     return torch.cat([ks_pool, pools.reshape(-1)])
 
 

@@ -38,6 +38,12 @@ SIGNATURES = {
     "ntt_pass_launch": [_P, _P, _P, _I, ctypes.c_int, _P, _U, _P],
     # x3, y3, z3, x1, y1, z1, x2, y2, z2, n, p[8] (host), n0inv, stream
     "curve_add_launch": [_P] * 9 + [_I, _P, _U, _P],
+    # out, a, b, n, k, mask16, stream
+    "mul_probe_launch": [_P, _P, _P, _I, ctypes.c_int, ctypes.c_int, _P],
+    # out, a, b, n, p as 16 16-bit limbs (host), -p^-1 mod 2^16, stream
+    "mont_mul_planes16_launch": [_P, _P, _P, _I, _P, _U, _P],
+    # out, a, b, n, p as 20 13-bit limbs (host), -p^-1 mod 2^13, stream
+    "mont_mul_planes13_launch": [_P, _P, _P, _I, _P, _U, _P],
 }
 
 

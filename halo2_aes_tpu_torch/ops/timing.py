@@ -1,0 +1,35 @@
+"""Timing on the card: the card's name and power limit, and CUDA-event
+times of a callable.  Used by ``chip_smoke.py`` and the probe scripts;
+nothing here falls back to the CPU."""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+
+
+def card_line() -> str:
+    """The first card's ``name, power.limit`` as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, windows: int = 5) -> float:
+    """Median over ``windows`` CUDA-event windows of ``iters`` calls each,
+    in ms per call, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per_call.append(start.elapsed_time(end) / iters)
+    return statistics.median(per_call)

@@ -3,9 +3,14 @@
 Usage:
   python -m halo2_aes_tpu_torch.prove --k 17 --blocks 384 --sets 4 \
       --tagged --verify --device cuda
+  python -m halo2_aes_tpu_torch.prove --k 17 --blocks 384 --sets 4 \
+      --decrypt --expose-ciphertext --verify --device cuda
+  python -m halo2_aes_tpu_torch.prove ... --backend kzg-gwc
 
 Blinding always comes from os.urandom; ``--seed`` seeds only the random
-AES key and plaintexts.
+AES key and plaintexts.  With ``--expose-ciphertext`` the verifier is
+given the public bytes (the ciphertext, or with ``--decrypt`` the
+recovered plaintext) from an oracle run apart from the witness.
 """
 
 from __future__ import annotations
@@ -19,14 +24,15 @@ import torch
 
 
 def run(k: int, n_sets: int, blocks: int, tagged: bool, do_verify: bool,
-        device: str, seed: int = 0, srs_cache: str | None = "ptau") -> dict:
+        device: str, seed: int = 0, srs_cache: str | None = "ptau",
+        expose_ciphertext: bool = False, decrypt: bool = False,
+        backend: str = "kzg-shplonk") -> dict:
+    from halo2_aes_tpu_torch.backend import get_backend
     from halo2_aes_tpu_torch.backend import keygen as KG
-    from halo2_aes_tpu_torch.backend import prover as PV
-    from halo2_aes_tpu_torch.backend import srs as SRS
-    from halo2_aes_tpu_torch.backend import verifier as VF
     from halo2_aes_tpu_torch.circuit import witness
-    from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
+    from halo2_aes_tpu_torch.ops import aes
 
+    be = get_backend(backend)
     dev = torch.device(device)
     timings = {}
 
@@ -39,31 +45,58 @@ def run(k: int, n_sets: int, blocks: int, tagged: bool, do_verify: bool,
         print(f"[{name}] {timings[name]}s", flush=True)
         return out
 
-    layout = timed("compile_circuit", compile_circuit,
-                   AesConfig(k=k, n_sets=n_sets, n_blocks=blocks,
-                             tagged_ops=tagged))
-    srs = timed("srs_setup", SRS.setup, k, dev, cache_dir=srs_cache)
+    if decrypt:
+        from halo2_aes_tpu_torch.models.aes128_dec import (
+            AesDecConfig, compile_circuit as compile_dec)
+
+        layout = timed("compile_circuit", compile_dec,
+                       AesDecConfig(k=k, n_sets=n_sets, n_blocks=blocks,
+                                    expose_plaintext=expose_ciphertext))
+    else:
+        from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
+
+        layout = timed("compile_circuit", compile_circuit,
+                       AesConfig(k=k, n_sets=n_sets, n_blocks=blocks,
+                                 tagged_ops=tagged,
+                                 expose_ciphertext=expose_ciphertext))
+    srs = timed("srs_setup", be.setup_srs, k, dev, cache_dir=srs_cache)
     if srs_cache is None:
         pk = timed("keygen", KG.keygen, layout, srs)
     else:
-        pk = timed("keygen", KG.keygen_cached, layout, srs, cache_dir=srs_cache)
+        pk = timed("keygen", be.keygen, layout, srs, cache_dir=srs_cache)
     rng = np.random.default_rng(seed)
-    key = torch.as_tensor(rng.integers(0, 256, 16, dtype=np.uint8), device=dev)
-    pts = torch.as_tensor(rng.integers(0, 256, (blocks, 16), dtype=np.uint8),
-                          device=dev)
-    values = timed("witness", lambda: witness.assemble_values(
-        layout, witness.build_pool(key, pts)))
-    proof = timed("prove", PV.prove, pk, values)
+    key_np = rng.integers(0, 256, 16, dtype=np.uint8)
+    pts_np = rng.integers(0, 256, (blocks, 16), dtype=np.uint8)
+    key = torch.as_tensor(key_np, device=dev)
+    pts = torch.as_tensor(pts_np, device=dev)
+
+    def build_values():
+        if decrypt:
+            # prove knowledge of the DECRYPTION of these ciphertexts
+            cts = aes.encrypt(pts, key)
+            return witness.assemble_values(layout, witness.build_dec_pool(key, cts))
+        return witness.assemble_values(layout, witness.build_pool(key, pts))
+
+    values = timed("witness", build_values)
+    proof = timed("prove", be.prove, pk, values)
     result = {"proof_bytes": len(proof), "timings": timings, "blocks": blocks,
-              "k": k, "n_sets": n_sets, "tagged_ops": tagged,
-              "device": str(dev)}
+              "k": k, "n_sets": n_sets, "tagged_ops": tagged or decrypt,
+              "mode": "decrypt" if decrypt else "encrypt",
+              "backend": backend, "device": str(dev)}
     if do_verify:
-        timed("verify", VF.verify, pk.vk, proof)
+        instances = None
+        if expose_ciphertext:
+            # the public bytes from an oracle on the host, apart from the
+            # witness: the ciphertext, or the plaintext when decrypting
+            pub = pts_np if decrypt else aes.encrypt(
+                torch.as_tensor(pts_np), torch.as_tensor(key_np)).numpy()
+            instances = [[int(v) for v in pub.reshape(-1)]]
+        timed("verify", be.verify, pk.vk, proof, instances=instances)
         result["verified"] = True
     return result
 
 
-def main():
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--k", type=int, default=17)
     ap.add_argument("--sets", type=int, default=1)
@@ -74,9 +107,25 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", required=True,
                     help="torch device to prove on, e.g. cuda or cpu")
-    args = ap.parse_args()
+    ap.add_argument("--expose-ciphertext", action="store_true",
+                    help="expose the public bytes as an instance column "
+                         "(ciphertext when encrypting, recovered plaintext "
+                         "with --decrypt)")
+    ap.add_argument("--decrypt", action="store_true",
+                    help="prove AES-128 DECRYPTION (models/aes128_dec.py; "
+                         "its lookups are always tagged)")
+    ap.add_argument("--backend", default="kzg-shplonk",
+                    choices=["kzg-shplonk", "kzg-gwc"],
+                    help="KZG with SHPLONK or GWC multiopen")
+    return ap
+
+
+def main():
+    args = parser().parse_args()
     print(json.dumps(run(args.k, args.sets, args.blocks, args.tagged,
-                         args.verify, args.device, args.seed)))
+                         args.verify, args.device, args.seed,
+                         expose_ciphertext=args.expose_ciphertext,
+                         decrypt=args.decrypt, backend=args.backend)))
 
 
 if __name__ == "__main__":

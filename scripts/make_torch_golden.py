@@ -1,12 +1,14 @@
 """Write the golden K=6 proofs that the PyTorch port must reproduce.
 
-Runs the JAX reference package on the CPU: for the K=6 toy circuit and
-the K=6 tagged toy circuit (``halo2_aes_tpu_torch/circuit/toys.py``,
-built with the reference's ``circuit.ir``) it sets up the dev SRS,
-keygens, proves with each circuit's fixed seed and verifies.  The
+Runs the JAX reference package on the CPU: for each entry of
+``GOLDEN_PROOFS`` in ``halo2_aes_tpu_torch/circuit/toys.py`` (the toy,
+tagged-toy and instance-toy circuits, built with the reference's
+``circuit.ir``, proved with SHPLONK and field-ordered lookups, and the
+first two also with GWC and with packed lookup keys) it sets up the dev
+SRS, keygens, proves with the circuit's fixed seed and verifies.  The
 result, ``halo2_aes_tpu_torch/testdata/golden_k6.json``, holds per
-circuit the seed, the vk digest and the proof bytes as hex; it is
-committed so the port's tests never run the slow JAX prover.
+proof the seed, the prove options, the vk digest and the proof bytes as
+hex; it is committed so the port's tests never run the slow JAX prover.
 
 Usage:
   JAX_PLATFORMS=cpu python scripts/make_torch_golden.py
@@ -35,16 +37,21 @@ def main() -> None:
     from halo2_aes_tpu.backend.prover import prove
     from halo2_aes_tpu.backend.verifier import verify
     from halo2_aes_tpu.circuit import ir
-    from halo2_aes_tpu_torch.circuit.toys import K, TOYS
+    from halo2_aes_tpu_torch.circuit.toys import GOLDEN_PROOFS, K, TOYS
 
     srs = SRS.setup(K, cache_dir=None)
     out = {"k": K}
-    for name, (build, seed) in TOYS.items():
+    pks = {}
+    for name, (toy, opts) in GOLDEN_PROOFS.items():
+        build, seed, instances = TOYS[toy]
         layout, values = build(ir)
-        pk = keygen(layout, srs)
-        proof = prove(pk, values, seed=seed)
-        assert verify(pk.vk, proof)
-        out[name] = {"seed": seed, "vk_digest": hex(pk.vk.digest),
+        if toy not in pks:
+            pks[toy] = keygen(layout, srs)
+        pk = pks[toy]
+        proof = prove(pk, values, seed=seed, **opts)
+        assert verify(pk.vk, proof, instances=instances,
+                      multiopen=opts.get("multiopen", "shplonk"))
+        out[name] = {"seed": seed, **opts, "vk_digest": hex(pk.vk.digest),
                      "proof": proof.hex()}
         print(f"{name}: {len(proof)} bytes", flush=True)
     os.makedirs(os.path.dirname(OUT), exist_ok=True)

@@ -2,11 +2,14 @@
 """Time and profile the PyTorch port's flagship prove on one CUDA card.
 
   python3 scripts/profile_torch_flagship.py [--tree DIR] [--proves N]
-      [--phases] [--profile] [--out FILE]
+      [--variants shplonk,gwc,packed] [--phases] [--profile] [--out FILE]
 
 Builds the flagship (AES-128, k=17, 4 sets, 384 blocks, tagged ops),
-runs one warm-up prove, then N timed proves, each reported with its
-kernel launch counts.  ``--phases`` times one more prove round by round:
+runs one warm-up prove per variant, then N rounds of timed proves, each
+round one prove of every variant in turn (``shplonk``: the default
+prove; ``gwc``: GWC multiopen; ``packed``: packed lookup keys), each
+reported with its kernel launch counts.  ``--phases`` times one more
+default prove round by round:
 the device is synchronised at every Fiat-Shamir challenge, and each
 interval is named after the prover phase that ends there.
 ``--profile`` runs one more prove under ``torch.profiler`` and reports
@@ -35,6 +38,8 @@ PHASE_AT = {"theta": "advice", "beta": "lookup_permuted", "gamma": None,
             "y": "grand_products", "x": "quotient", "y2": "evals", "v": None,
             "u": "shplonk_h", "finalize": "shplonk_l"}
 CHALLENGES = ["theta", "beta", "gamma", "y", "x", "y2", "v", "u"]
+VARIANTS = {"shplonk": {}, "gwc": {"multiopen": "gwc"},
+            "packed": {"lookup_sort": "packed"}}
 
 
 def launches():
@@ -44,12 +49,12 @@ def launches():
             "K3": cuda_curve.LAUNCHES}
 
 
-def timed_prove(PV, pk, values, dev):
+def timed_prove(PV, pk, values, dev, **opts):
     import torch
 
     before = launches()
     t0 = time.perf_counter()
-    PV.prove(pk, values)
+    PV.prove(pk, values, **opts)
     torch.cuda.synchronize(dev)
     s = time.perf_counter() - t0
     return s, {k: v - before[k] for k, v in launches().items()}
@@ -123,7 +128,10 @@ def main() -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--tree", default=REPO,
                     help="checkout to import halo2_aes_tpu_torch from")
-    ap.add_argument("--proves", type=int, default=3, help="timed warm proves")
+    ap.add_argument("--proves", type=int, default=3,
+                    help="rounds of timed warm proves")
+    ap.add_argument("--variants", default="shplonk",
+                    help="comma-separated, timed in turns: " + ", ".join(VARIANTS))
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out", default=None)
@@ -152,13 +160,19 @@ def main() -> int:
     pts = torch.as_tensor(rng.integers(0, 256, (FLAGSHIP["n_blocks"], 16),
                                        dtype=np.uint8), device=dev)
     values = witness.assemble_values(layout, witness.build_pool(key, pts))
-    first_s, _ = timed_prove(PV, pk, values, dev)
-    runs = [timed_prove(PV, pk, values, dev) for _ in range(args.proves)]
+    names = args.variants.split(",")
+    first = {v: timed_prove(PV, pk, values, dev, **VARIANTS[v])[0] for v in names}
+    runs = {v: [] for v in names}
+    for _ in range(args.proves):
+        for v in names:
+            runs[v].append(timed_prove(PV, pk, values, dev, **VARIANTS[v]))
+    variants = {v: {"first_prove_s": first[v], "prove_s": [s for s, _ in runs[v]],
+                    "median_prove_s": float(np.median([s for s, _ in runs[v]]))
+                    if runs[v] else None,
+                    "launches_per_prove": runs[v][-1][1] if runs[v] else None}
+                for v in names}
     out = {"tree": os.path.relpath(os.path.abspath(args.tree), REPO),
-           "card": card, **FLAGSHIP, "first_prove_s": first_s,
-           "prove_s": [s for s, _ in runs],
-           "median_prove_s": float(np.median([s for s, _ in runs])) if runs else None,
-           "launches_per_prove": runs[-1][1] if runs else None}
+           "card": card, **FLAGSHIP, **variants[names[0]], "variants": variants}
     if args.phases:
         out["phases_s"] = phase_prove(PV, pk, values, dev)
     if args.profile:

@@ -1,8 +1,9 @@
 """The port's SRS, keygen, prover and verifier against the reference at
-K=6: the toy and tagged-toy proofs are byte-identical to the golden
-fixtures the JAX reference produced (scripts/make_torch_golden.py),
-both verifiers accept them, and corrupted proofs and bad witnesses are
-rejected."""
+K=6: the toy, tagged-toy and instance-toy proofs, and the toys' GWC and
+packed-lookup proofs, are byte-identical to the golden fixtures the JAX
+reference produced (scripts/make_torch_golden.py), both verifiers
+accept them, and corrupted proofs, bad witnesses and changed instances
+are rejected."""
 
 import json
 import pathlib
@@ -15,9 +16,9 @@ from halo2_aes_tpu.backend import keygen as ref_keygen
 from halo2_aes_tpu.backend import srs as ref_srs
 from halo2_aes_tpu.backend import verifier as ref_verifier
 from halo2_aes_tpu.circuit import ir as ref_ir
-from halo2_aes_tpu_torch.backend import convert
+from halo2_aes_tpu_torch.backend import convert, get_backend
 from halo2_aes_tpu_torch.backend import keygen, prover, srs, verifier
-from halo2_aes_tpu_torch.circuit.toys import K, TOYS
+from halo2_aes_tpu_torch.circuit.toys import GOLDEN_PROOFS, K, PUBLIC, TOYS
 from halo2_aes_tpu_torch.ops import field as F
 
 torch.set_num_threads(1)
@@ -25,7 +26,8 @@ GOLDEN = json.loads((pathlib.Path(__file__).resolve().parent.parent
                      / "halo2_aes_tpu_torch" / "testdata"
                      / "golden_k6.json").read_text())
 # (row, column, value) of one cell that breaks each toy's constraints
-BAD_CELL = {"toy": (6, 2, 6), "tagged": (6, 1, 10)}
+BAD_CELL = {"toy": (6, 2, 6), "tagged": (6, 1, 10), "instance": (4, 0, 3)}
+VARIANTS = sorted(n for n in GOLDEN_PROOFS if GOLDEN_PROOFS[n][1])
 
 
 @pytest.fixture(scope="module")
@@ -43,8 +45,11 @@ def test_srs_equals_reference(srs_pair):
 
 @pytest.fixture(scope="module", params=sorted(TOYS))
 def keys(request, srs_pair):
-    name = request.param
-    build, seed = TOYS[name]
+    return _keys(request.param, srs_pair)
+
+
+def _keys(name, srs_pair):
+    build, seed, _ = TOYS[name]
     layout, values = build()
     ref_layout, _ = build(ref_ir)
     pk = keygen.keygen(layout, srs_pair[0])
@@ -109,24 +114,26 @@ def test_convert_round_trips_reference_pk(keys, srs_pair):
 
 def test_prove_equals_golden_and_verifies(keys):
     name, seed, _, values, pk, ref_pk = keys
+    inst = TOYS[name][2]
     proof = prover.prove(pk, values, seed=seed)
     assert proof.hex() == GOLDEN[name]["proof"]
-    assert verifier.verify(pk.vk, proof)
-    assert ref_verifier.verify(ref_pk.vk, proof)
+    assert verifier.verify(pk.vk, proof, instances=inst)
+    assert ref_verifier.verify(ref_pk.vk, proof, instances=inst)
 
 
 def test_verify_batch(keys):
     """Two proofs of one circuit (golden seed and another) fold into one
     pairing check; a corrupted member makes the batch fail."""
     name, _, _, values, pk, _ = keys
+    inst = [TOYS[name][2]] * 2
     golden = bytes.fromhex(GOLDEN[name]["proof"])
     other = prover.prove(pk, values, seed=3)
     assert other != golden
-    assert verifier.verify_batch(pk.vk, [golden, other])
+    assert verifier.verify_batch(pk.vk, [golden, other], inst)
     bad = bytearray(other)
     bad[-1] ^= 1
     with pytest.raises(verifier.VerifyError):
-        verifier.verify_batch(pk.vk, [golden, bytes(bad)])
+        verifier.verify_batch(pk.vk, [golden, bytes(bad)], inst)
 
 
 def test_corrupted_proof_rejected(keys):
@@ -134,7 +141,7 @@ def test_corrupted_proof_rejected(keys):
     bad = bytearray(bytes.fromhex(GOLDEN[name]["proof"]))
     bad[-1] ^= 1
     with pytest.raises(verifier.VerifyError):
-        verifier.verify(pk.vk, bytes(bad))
+        verifier.verify(pk.vk, bytes(bad), instances=TOYS[name][2])
 
 
 def test_bad_witness_rejected(keys):
@@ -143,12 +150,71 @@ def test_bad_witness_rejected(keys):
     bad = values.copy()
     bad[row, col] = v
     with pytest.raises(verifier.VerifyError):
-        verifier.verify(pk.vk, prover.prove(pk, bad, seed=1))
+        verifier.verify(pk.vk, prover.prove(pk, bad, seed=1),
+                        instances=TOYS[name][2])
 
 
 def test_unported_options_raise(keys):
     _, _, _, values, pk, _ = keys
-    for kw in ({"multiopen": "gwc"}, {"lookup_sort": "packed"},
-               {"mesh": object()}, {"checkpoint_dir": "x"}):
+    for kw in ({"mesh": object()}, {"checkpoint_dir": "x"}):
         with pytest.raises(NotImplementedError):
             prover.prove(pk, values, seed=0, **kw)
+    with pytest.raises(NotImplementedError):
+        get_backend("ipa")
+
+
+def test_instance_toy_changed_instance_rejected(srs_pair):
+    """The instance path: the proof binds to the public values; a batch
+    with one changed instance value fails, and so does a proof of a
+    witness whose instance cells disagree with the public values."""
+    _, seed, _, values, pk, ref_pk = _keys("instance", srs_pair)
+    proof = bytes.fromhex(GOLDEN["instance"]["proof"])
+    other = prover.prove(pk, values, seed=seed + 1)
+    changed = [PUBLIC[0], PUBLIC[1] + 1, PUBLIC[2]]
+    with pytest.raises(verifier.VerifyError):
+        verifier.verify_batch(pk.vk, [proof, other], [[PUBLIC], [changed]])
+    with pytest.raises(ref_verifier.VerifyError):
+        ref_verifier.verify(ref_pk.vk, proof, instances=[changed])
+    # explicit instances override the matrix's: the proof then binds to them
+    lied = prover.prove(pk, values, instances=[changed], seed=seed)
+    with pytest.raises(verifier.VerifyError):
+        verifier.verify(pk.vk, lied, instances=[changed])
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_prove_variant_equals_golden(name, srs_pair):
+    """GWC multiopen and packed lookup keys: the port's toy proofs equal
+    the reference's bytes, and both verifiers (and the backend registry)
+    accept them."""
+    toy, opts = GOLDEN_PROOFS[name]
+    _, seed, _, values, pk, ref_pk = _keys(toy, srs_pair)
+    proof = prover.prove(pk, values, seed=seed, **opts)
+    assert proof.hex() == GOLDEN[name]["proof"]
+    multiopen = opts.get("multiopen", "shplonk")
+    assert verifier.verify(pk.vk, proof, multiopen=multiopen)
+    assert ref_verifier.verify(ref_pk.vk, proof, multiopen=multiopen)
+    assert get_backend(f"kzg-{multiopen}").verify(pk.vk, proof)
+    bad = bytearray(proof)
+    bad[-1] ^= 1
+    with pytest.raises(verifier.VerifyError):
+        verifier.verify(pk.vk, bytes(bad), multiopen=multiopen)
+
+
+def test_packed_sort_needs_byte_tables(srs_pair):
+    layout, values = TOYS["toy"][0]()
+    layout.fixed[3, 40] = 300            # a table value past one byte
+    pk = keygen.keygen(layout, srs_pair[0])
+    with pytest.raises(ValueError):
+        prover.prove(pk, values, seed=0, lookup_sort="packed")
+
+
+def test_cli_parses_decrypt_expose_and_gwc():
+    from halo2_aes_tpu_torch import prove as cli
+
+    args = cli.parser().parse_args(
+        ["--k", "17", "--blocks", "384", "--sets", "4", "--decrypt",
+         "--expose-ciphertext", "--backend", "kzg-gwc", "--device", "cuda"])
+    assert (args.decrypt, args.expose_ciphertext, args.backend) == (
+        True, True, "kzg-gwc")
+    with pytest.raises(SystemExit):
+        cli.parser().parse_args(["--backend", "ipa", "--device", "cuda"])
