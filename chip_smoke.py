@@ -9,7 +9,8 @@ Phases, each printing one JSON line as it ends:
                 pass, K3 curve add, P1 mul probe, P2a/P2b Montgomery
                 probes on limb-major planes)
   2 kernels     each kernel against its plain PyTorch version, bit-exact,
-                on card tensors at its path's shapes, with times
+                on card tensors at its path's shapes, with times (K1-K3
+                also at the k=20 prove's shapes)
   3 golden      the K=6 golden proofs (toy, tagged toy, instance toy;
                 GWC and packed-lookup proofs of the first two) proved on
                 the card equal the JAX reference's committed bytes and
@@ -28,10 +29,19 @@ Phases, each printing one JSON line as it ends:
   8 decrypt     full-capacity decryption at k=17, 4 sets, 384 blocks,
                 plaintext exposed: recovered plaintext checked, proof
                 verified with the plaintext instances, flipped byte rejected
-Phases 4 and 5-8 each set the launch counts to 0 before they drive
-their path and fail if a kernel of the path never launched.  Then the
-card line, the kernels record and, last, the ok line.  Any failure
-raises and the exit code is non-zero.
+  9 large       the k >= 19 prove path: the flagship proved once more with
+                the sliced path forced (static evaluations recomputed)
+                equals the ordinary proof byte for byte; then, with the
+                earlier phases' memory freed, the reference prover binary's shape
+                (AES-128, k=20, 4 sets, 3,082 blocks, tagged ops): setup
+                and keygen (cached in ptau/, 3.2 GB), witness, one
+                prove, verify, a flipped byte rejected, peak memory; and
+                a K=6 toy prove crashed after its products phase resumes
+                from its checkpoints to the golden bytes
+Phases 4, 5-8 and the k=20 prove of 9 each set the launch counts to 0
+before they drive their path and fail if a kernel of the path never
+launched.  Then the card line, the kernels record and, last, the ok
+line.  Any failure raises and the exit code is non-zero.
 """
 
 from __future__ import annotations
@@ -45,6 +55,9 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = dict(k=17, n_sets=4, n_blocks=384, tagged_ops=True)
 FLAGSHIP_PROOF_BYTES = 5056      # the reference's proof length at this shape
+# the reference prover binary's shape (its src/main.rs: K=20, N=4 column sets;
+# 3,082 blocks as BASELINE.md sizes it)
+LARGE = dict(k=20, n_sets=4, n_blocks=3082, tagged_ops=True)
 
 
 def emit(obj) -> None:
@@ -247,9 +260,75 @@ def phase_kernels(dev) -> dict:
     if top >= 1 << 32:
         raise AssertionError(f"P2b: a 13-bit column reached {top} >= 2^32")
     rec["P2b"]["column_max"] = top
+    for key, k20 in kernels_k20(dev, rng, p, q).items():
+        rec[key]["k20"] = k20
     torch.cuda.synchronize()
     emit({"phase": "kernels", **rec})
     return rec
+
+
+def kernels_k20(dev, rng, p, q, count: int = 45, reps: int = 8) -> dict:
+    """K1, K2 and K3 at the shapes of the k=20 prove, each against its
+    plain version (bit-exact) and timed (plain: one call after a warm-up):
+    K1 on a 45 x 2^20 stack against a broadcast 2^20 row (the coset
+    shift of the quotient's dynamic stack), K2 on both passes of a
+    45 x 2^20 stack, K3 on 2^19 point pairs (an MSM tree's first level);
+    ``p``, ``q`` are the 2^16 K3 pairs, rescaled to fresh
+    representatives."""
+    import torch
+
+    from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_ntt
+    from halo2_aes_tpu_torch.ops import field as F
+    from halo2_aes_tpu_torch.ops import ntt as N
+    from halo2_aes_tpu_torch.ops.timing import time_ms as _time_ms
+
+    def check(name, out, ref):
+        if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            raise AssertionError(f"{name} at the k=20 shape differs from plain")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+
+    def random_fr(rows):
+        """Canonical-range limbs made on the card (the top limb below p's)."""
+        x = torch.randint(0, 1 << 16, (rows, F.LIMBS), generator=gen,
+                          device=dev, dtype=torch.int32)
+        x[:, -1] %= int(F.FR.p_limbs[-1])
+        return x
+
+    out = {}
+    n = 1 << 20
+    stack = random_fr(count * n).reshape(count, n, F.LIMBS)
+    row = random_fr(n)
+    check("K1", [cuda_field.mont_mul(F.FR, stack, row)],
+          [cuda_field.mont_mul_plain(F.FR, stack, row)])
+    out["K1"] = {"shape": "(45, 2^20) x broadcast (2^20,)", "max_abs_err": 0,
+                 "ms": _time_ms(lambda: cuda_field.mont_mul(F.FR, stack, row), 10),
+                 "plain_ms": _time_ms(
+                     lambda: cuda_field.mont_mul_plain(F.FR, stack, row), 1, 1)}
+    del row
+    k2 = {"shape": "45 x 2^20: (46080, 1024) rows x lanes, twice",
+          "max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0}
+    x = stack.reshape(count * 1024, 1024, F.LIMBS)
+    for inverse in (False, True):
+        tw = F.limbs(N._stage_tables(F.FR, 10, inverse), dev)
+        check("K2", [cuda_ntt.ntt_pass(F.FR, x, tw)],
+              [cuda_ntt.ntt_pass_plain(F.FR, x, tw)])
+        k2["ms"] += _time_ms(lambda: cuda_ntt.ntt_pass(F.FR, x, tw), 10)
+        k2["plain_ms"] += _time_ms(lambda: cuda_ntt.ntt_pass_plain(F.FR, x, tw), 1, 1)
+    out["K2"] = k2                     # a forward and an inverse pass
+    del stack, x
+    lam = random_fr(reps * p[0].shape[0])           # < r < q: a valid Fq value
+    lam[lam.eq(0).all(-1)] = F.const(F.FQ, "one", dev)
+    pp = tuple(cuda_field.mont_mul_plain(F.FQ, c.repeat(reps, 1), lam) for c in p)
+    qq = tuple(cuda_field.mont_mul_plain(F.FQ, c.repeat(reps, 1), lam.flip(0))
+               for c in q)
+    check("K3", cuda_curve.add(pp, qq), cuda_curve.add_plain(pp, qq))
+    out["K3"] = {"shape": "2^19 point pairs", "max_abs_err": 0,
+                 "ms": _time_ms(lambda: cuda_curve.add(pp, qq), 20),
+                 "plain_ms": _time_ms(lambda: cuda_curve.add_plain(pp, qq), 1, 1)}
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_golden(dev):
@@ -548,6 +627,134 @@ def phase_decrypt(srs, dev) -> None:
           "flipped_byte_rejected": True, "launches": counts})
 
 
+def large_forced(pk, values) -> dict:
+    """The flagship proved with the large path forced (switch lowered to
+    its k, static sub-coset evaluations recomputed by evals_sliced)
+    equals the ordinary proof of the same seed, byte for byte."""
+    import torch
+
+    from halo2_aes_tpu_torch.backend import prover as PV
+
+    ordinary = PV.prove(pk, values, seed=5)
+    saved = PV._LARGE_MIN_K
+    PV._LARGE_MIN_K = pk.vk.k
+    try:
+        t0 = time.perf_counter()
+        sliced = PV.prove(pk, values, seed=5)
+        torch.cuda.synchronize()
+        sliced_s = time.perf_counter() - t0
+    finally:
+        PV._LARGE_MIN_K = saved
+    if sliced != ordinary:
+        raise AssertionError("large: the forced sliced k=17 proof differs")
+    return {"k": pk.vk.k, "identical": True, "sliced_prove_s": sliced_s}
+
+
+def large_k20(dev) -> dict:
+    """The reference prover binary's shape on the large path: setup, keygen,
+    witness, one SHPLONK prove (field-ordered lookups), verify."""
+    import numpy as np
+    import torch
+
+    from halo2_aes_tpu_torch.backend import keygen as KG
+    from halo2_aes_tpu_torch.backend import poly as P
+    from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.backend import srs as SRS
+    from halo2_aes_tpu_torch.backend import verifier as VF
+    from halo2_aes_tpu_torch.circuit import witness
+    from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
+    from halo2_aes_tpu_torch.ops import field as F
+    from halo2_aes_tpu_torch.ops import ntt as N
+
+    cfg = LARGE
+    cache = os.path.join(REPO, "ptau")
+    t = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        t[name] = time.perf_counter() - t0
+        return out
+
+    reset_counts()
+    layout = timed("compile_s", compile_circuit, AesConfig(**cfg))
+    srs = timed("setup_s", SRS.setup, cfg["k"], dev, cache_dir=cache)
+    pk = timed("keygen_s", KG.keygen_cached, layout, srs, cache_dir=cache)
+    ph = PV._get_phases(pk)
+    if not ph.large():
+        raise AssertionError(f"large: k={cfg['k']} does not take the large path")
+    # a powers table built on the card (K1) against the host loop
+    shift = P.GEN * pow(N.domain(F.FR, ph.ext_k).omega, 1, F.FR.modulus) % F.FR.modulus
+    if not np.array_equal(
+            F.to_numpy(PV._subcoset_tables(ph.k, ph.ext_k, 1, dev)[0]),
+            F.FR.host_powers(shift, ph.n)):
+        raise AssertionError("large: a powers table built on the card differs")
+    rng = np.random.default_rng(3)
+    key = torch.as_tensor(rng.integers(0, 256, 16, dtype=np.uint8), device=dev)
+    pts = torch.as_tensor(rng.integers(0, 256, (cfg["n_blocks"], 16),
+                                       dtype=np.uint8), device=dev)
+    values = timed("witness_s", lambda: witness.assemble_values(
+        layout, witness.build_pool(key, pts)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    proof = timed("prove_s", PV.prove, pk, values)
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = read_counts()
+    timed("verify_s", VF.verify, pk.vk, proof)
+    if not rejects_flipped_byte(lambda p: VF.verify(pk.vk, p), proof):
+        raise AssertionError("large: a k=20 proof with a flipped byte verified")
+    require_launched("large", counts, PATH_KERNELS)
+    return {**cfg, **t, "blocks_per_s": cfg["n_blocks"] / t["prove_s"],
+            "card_table_equals_host": True,
+            "proof_bytes": len(proof), "verified": True,
+            "flipped_byte_rejected": True, "peak_mem_bytes": peak,
+            "launches": {k: counts[k] for k in PATH_KERNELS}}
+
+
+def large_resume(dev) -> dict:
+    """A K=6 toy prove crashed right after its products checkpoint
+    resumes from the saved phases to the golden bytes."""
+    import shutil
+
+    from halo2_aes_tpu_torch.backend import keygen as KG
+    from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.backend import resume as RES
+    from halo2_aes_tpu_torch.backend import srs as SRS
+    from halo2_aes_tpu_torch.circuit.toys import K, TOYS
+
+    with open(os.path.join(REPO, "halo2_aes_tpu_torch", "testdata",
+                           "golden_k6.json")) as f:
+        golden = json.load(f)["toy"]["proof"]
+    build, seed, _ = TOYS["toy"]
+    layout, values = build()
+    pk = KG.keygen(layout, SRS.setup(K, dev, cache_dir=None))
+    root = os.path.join(REPO, "build", "smoke_checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    save = RES.ProveCheckpoint.save
+
+    def crashing_save(self, phase, arrays, points, rng=None):
+        save(self, phase, arrays, points, rng)
+        if phase == "products":
+            raise RuntimeError("crash after products")
+
+    RES.ProveCheckpoint.save = crashing_save
+    try:
+        PV.prove(pk, values, seed=seed, checkpoint_dir=root)
+    except RuntimeError as e:
+        if "crash after products" not in str(e):
+            raise
+    else:
+        raise AssertionError("large: the injected crash did not happen")
+    finally:
+        RES.ProveCheckpoint.save = save
+    saved = sorted(os.listdir(os.path.join(root, os.listdir(root)[0])))
+    resumed = PV.prove(pk, values, seed=seed, checkpoint_dir=root)
+    shutil.rmtree(root)
+    if resumed.hex() != golden:
+        raise AssertionError("large: the resumed K=6 proof differs from golden")
+    return {"checkpoints_before_resume": saved, "resumed_equals_golden": True}
+
+
 def kernels_record(rec: dict, counts: dict) -> dict:
     from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_ntt, cuda_probe
 
@@ -590,11 +797,14 @@ def main() -> int:
     counts.update({key: probe_counts[key] for key in PROBE_KERNELS})
     phase_gwc_packed(pk, values)
     srs = pk.srs
-    del pk, values
-    free()
     phase_ctr(srs, dev)
     free()
     phase_decrypt(srs, dev)
+    forced = large_forced(pk, values)
+    del pk, values, srs
+    free()
+    emit({"phase": "large", "forced_sliced_k17": forced, "k20": large_k20(dev),
+          "resume_k6": large_resume(dev)})
     free()
     print(card_line(), flush=True)
     emit(kernels_record(rec, counts))

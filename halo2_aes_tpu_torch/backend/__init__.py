@@ -21,7 +21,8 @@ class Backend:
     name: str
     setup_srs: Callable       # (k, device, **kw) -> SRS
     keygen: Callable          # (layout, srs, **kw) -> ProvingKey (.vk)
-    prove: Callable           # (pk, values, instances=None, seed=None) -> bytes
+    prove: Callable           # (pk, values, instances=None, seed=None,
+    #                           checkpoint_dir=None) -> bytes
     verify: Callable          # (vk, proof, instances=None) -> True or raises
 
 

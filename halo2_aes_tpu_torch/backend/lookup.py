@@ -136,6 +136,25 @@ def permuted_indices_field_many(a_std, s_std, L: int, usable: int):
     return a_order, table_perm
 
 
+def grand_product(a, s, a_perm, s_perm, usable: int, beta_m, gamma_m, blinding):
+    """One lookup's z column: z[0] = 1,
+    z[j+1] = z[j] (A+beta)(S+gamma) / ((A'+beta)(S'+gamma)).  a, s: the
+    compressed input/table columns (n, 16); a_perm, s_perm: the permuted
+    columns.  Rows past the blinding boundary take ``blinding`` (the
+    value at row ``usable``, 1 on honest witnesses, is kept for the
+    l_last constraint).  The k >= 19 product phase streams the lookups
+    through this one at a time; it equals the matching rows of
+    ``grand_product_many``."""
+    n = a.shape[0]
+    one = F.const(FR, "one", a.device)
+    num = F.mont_mul(FR, F.add(FR, a, beta_m), F.add(FR, s, gamma_m))
+    den = F.mont_mul(FR, F.add(FR, a_perm, beta_m), F.add(FR, s_perm, gamma_m))
+    ratio = F.mont_mul(FR, num, F.batch_inv(FR, den))
+    ratio = F.select(torch.arange(n, device=a.device) < usable, ratio, one)
+    cum = F.cumprod(FR, ratio)
+    return torch.cat([one[None], cum[:n - 1 - blinding.shape[0]], blinding])
+
+
 def grand_product_many(a, s, a_perm, s_perm, L: int, usable: int,
                        beta_m, gamma_m, blinding):
     """All L lookups' z columns over FLAT (L*n, 16) tensors (lookup l at

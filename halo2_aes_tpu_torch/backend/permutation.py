@@ -28,7 +28,7 @@ def delta() -> int:
 def _label_tables(k: int, m: int, device):
     """(omega_pows (n,16), delta_pows (m,16)) Montgomery tables."""
     w = domain(FR, k).omega
-    return (F.limbs(FR.host_powers(w, 1 << k), device),
+    return (F.powers_table(FR, w, 1 << k, device),
             F.limbs(FR.host_powers(delta(), m), device))
 
 

@@ -21,7 +21,7 @@ GEN = 7
 @functools.lru_cache(maxsize=None)
 def _shift_powers(k: int, inverse: bool, device):
     base = pow(GEN, -1, FR.modulus) if inverse else GEN
-    return F.limbs(FR.host_powers(base, 1 << k), device)
+    return F.powers_table(FR, base, 1 << k, device)
 
 
 def pad_coeffs(coeffs, n: int):

@@ -1,7 +1,7 @@
 """The KZG prover with SHPLONK or GWC multiopen (port of
 ``backend/prover.py``).
 
-The single-device path of the reference for k <= 18, with either
+The single-device path of the reference for k <= MAX_K, with either
 multiopen (``"shplonk"``, ``"gwc"``) and either lookup order
 (``"field"``, ``"packed"``), phase by phase and in the same transcript
 order, so that the same pk, witness and seed give the same proof bytes:
@@ -20,11 +20,25 @@ order (``seed=None`` means ``os.urandom``).
 The quotient is evaluated per SUB-COSET: the extended coset of ratio R
 splits into R interleaved size-n cosets {g w_ext^s w^j}; rotations stay
 intra-coset rolls.
+
+From k = ``_LARGE_MIN_K`` (19) on, the reference's large path runs: the
+quotient's coset NTTs go B polys at a time into one output
+(``evals_sliced``), the static sub-coset evaluations are recomputed
+every proof instead of cached, the lookup grand
+products stream one lookup at a time, the quotient finish and the
+SHPLONK h quotient use size-n sub-coset transforms in place of the 2^(k+2)-
+and 2^(k+1)-point ones, the SHPLONK member fold streams B members at a
+time, and the evaluations go 12 polys per stack.  Each sliced function
+equals its unsliced form bit for bit, so the proof bytes do not depend
+on the switch.  ``checkpoint_dir`` saves each of the phases advice,
+lookup, products and quotient (backend/resume.py); ``HALO2_SANITIZE=1``
+checks their outputs for canonical limbs (utils/sanitize.py).
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import os
 
 import numpy as np
@@ -34,16 +48,23 @@ from halo2_aes_tpu_torch.backend import lookup as LK
 from halo2_aes_tpu_torch.backend import permutation as PERM
 from halo2_aes_tpu_torch.backend import poly as P
 from halo2_aes_tpu_torch.backend import protocol as PROTO
+from halo2_aes_tpu_torch.backend import resume as RES
 from halo2_aes_tpu_torch.backend.keygen import ProvingKey, commit_affine, commit_many
 from halo2_aes_tpu_torch.backend.transcript import TranscriptWriter
 from halo2_aes_tpu_torch.ops import curve as CV
 from halo2_aes_tpu_torch.ops import field as F
 from halo2_aes_tpu_torch.ops.ntt import domain, ntt_many
+from halo2_aes_tpu_torch.utils import sanitize as SAN
 
 FR = F.FR
 LIMBS = F.LIMBS
 _R_LIMBS = F.int_to_limbs(FR.modulus)
-MAX_K = 18
+# the largest k proved on one H100 (80 GB); the two-pass NTT (K2 rows of
+# at most 2^11) would reach 2^22, but no k above 20 has been run
+MAX_K = 20
+# the sliced phases run from this k on (tests and the chip smoke lower it
+# to hold the sliced path against the unsliced one on small circuits)
+_LARGE_MIN_K = 19
 
 
 def _device_algebra(device):
@@ -100,6 +121,16 @@ def _check_lookup_packable(layout, lk):
                              f"values up to {hi}; packed keys need bytes")
 
 
+def _context(**attrs) -> PROTO.Context:
+    """A protocol Context instance.  (A class made per call, as the
+    reference makes one inside its traced functions, sits in a reference
+    cycle: eagerly, the tensors its accessors close over would stay
+    allocated until Python's cyclic collector ran.)"""
+    ctx = PROTO.Context()
+    ctx.__dict__.update(attrs)
+    return ctx
+
+
 class _IntAlg:
     """Integer algebra for the packed keys (wraps like the reference's
     int32 arithmetic once masked to 32 bits)."""
@@ -140,29 +171,62 @@ def _rand_field(rng, *shape) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _subcoset_tables_np(k: int, ext_k: int, s: int):
-    """(shift_powers (n,16): (g w_ext^s)^i, zh_inv (16,): 1/Z_H on the
-    sub-coset) as numpy limbs."""
+def _subcoset_tables(k: int, ext_k: int, s: int, device):
+    """(shift_powers (n, 16): (g w_ext^s)^i, zh_inv (16,): 1/Z_H on the
+    sub-coset) on ``device``."""
     p = FR.modulus
     n = 1 << k
+    shift = P.GEN * pow(domain(FR, ext_k).omega, s, p) % p
+    return (F.powers_table(FR, shift, n, device),
+            F.encode(FR, pow(pow(shift, n, p) - 1, -1, p), device))
+
+
+@functools.lru_cache(maxsize=None)
+def _finish_split_tables(k: int, ext_k: int, d: int, device):
+    """Tables of the four-step quotient finish.  With sub-coset values
+    v_s[t] = f(g W^s w^t) (W = w_ext, w = W^R), INTT_n over t and the
+    unscale by (g W^s)^{-t'} leave an R-point DFT across the sub-cosets;
+    its inverse is c_{t'+qn} = sum_s mix[q,s] d_s[t'] with
+    mix[q,s] = R^-1 g^{-qn} (W^n)^{-sq}.  Returns (unscale (R*n, 16):
+    rows [s*n, (s+1)*n) hold (g W^s)^{-t'}; mix (d-1, R, 16)) on
+    ``device``."""
+    p = FR.modulus
+    n = 1 << k
+    R = (1 << ext_k) // n
     w_ext = domain(FR, ext_k).omega
-    shift = P.GEN * pow(w_ext, s, p) % p
-    shift_powers = FR.host_powers(shift, n)
-    zh_inv = F.int_to_limbs(FR.to_mont_host(pow(pow(shift, n, p) - 1, -1, p)))
-    return shift_powers, zh_inv
+    unscale = torch.cat([
+        F.powers_table(FR, pow(P.GEN * pow(w_ext, s, p) % p, -1, p), n, device)
+        for s in range(R)])
+    omega_r = pow(w_ext, n, p)
+    r_inv = pow(R, -1, p)
+    g_n = pow(P.GEN, n, p)
+    mix = np.zeros((d - 1, R, LIMBS), np.uint32)
+    for q in range(d - 1):
+        gq_inv = pow(pow(g_n, q, p), -1, p)
+        for s in range(R):
+            mix[q, s] = FR.encode(r_inv * gq_inv % p * pow(omega_r, (-s * q) % R, p))
+    return unscale, F.limbs(mix, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _shplonk_h_tables(k: int, device):
+    """(fold_sc (2, 16): shift_s^n; shift_pows2 (2, n, 16); unscale2;
+    mix2) of the two sub-cosets of domain(k+1), for shplonk_h_large."""
+    p = FR.modulus
+    n = 1 << k
+    w1 = domain(FR, k + 1).omega
+    fold = FR.encode([pow(P.GEN * pow(w1, s, p) % p, n, p) for s in range(2)])
+    shifts = torch.stack([_subcoset_tables(k, k + 1, s, device)[0]
+                          for s in range(2)])
+    return (F.limbs(fold, device), shifts,
+            *_finish_split_tables(k, k + 1, 2, device))
 
 
 @functools.lru_cache(maxsize=None)
 def _coset_points(k: int, device):
     """(n, 16) Montgomery coset points g * w^j of domain(k)."""
-    dom = domain(FR, k)
-    p = FR.modulus
-    out = []
-    acc = P.GEN % p
-    for _ in range(dom.n):
-        out.append(FR.to_mont_host(acc))
-        acc = acc * dom.omega % p
-    return F.limbs(F.ints_to_limbs_fast(out), device)
+    return F.mont_mul(FR, domain(FR, k).omega_powers(device),
+                      F.encode(FR, P.GEN, device))
 
 
 class _Phases:
@@ -235,12 +299,7 @@ class _Phases:
             v = all_fld[col * n:(col + 1) * n]
             return torch.roll(v, -rot, 0) if rot else v
 
-        class Ctx(PROTO.Context):
-            alg = self.alg
-            theta = theta_m
-            column = staticmethod(col_fld)
-
-        return Ctx
+        return _context(alg=self.alg, theta=theta_m, column=col_fld)
 
     def eval_many(self, flat, x_m, count: int):
         """Evaluate ``count`` size-n coefficient polys (FLAT) at x_m ->
@@ -341,18 +400,58 @@ class _Phases:
         return LK.grand_product_many(a_all, s_all, lk_ap, lk_sp, self.n_lk,
                                      self.usable, beta_m, gamma_m, blinds)
 
+    def lookup_products_streamed(self, all_fld, lk_ap, lk_sp, theta_m, beta_m,
+                                 gamma_m, blinds):
+        """The large path's lookup z columns, one lookup at a time through
+        ``lookup.grand_product`` (equal to ``lookup_products_all``): only
+        one lookup's compressed columns and scan are live at once."""
+        n = self.n
+        Ctx = self._column_ctx(all_fld, theta_m)
+        return torch.cat([
+            LK.grand_product(PROTO.compressed_input(Ctx, lk),
+                             PROTO.compressed_table(Ctx, lk),
+                             lk_ap[i * n:(i + 1) * n], lk_sp[i * n:(i + 1) * n],
+                             self.usable, beta_m, gamma_m, blinds[i])
+            for i, lk in enumerate(self.cs.lookups)])
+
     # -- phase 4: quotient on sub-cosets -----------------------------------
+
+    def large(self) -> bool:
+        """Whether this pk's proves take the sliced k >= 19 path."""
+        return self.k >= _LARGE_MIN_K
+
+    def evals_sliced(self, keys, coeffs_fn, shift_pows, B: int = 8):
+        """Sub-coset NTT of the polys ``keys`` (coefficients from
+        ``coeffs_fn``), B at a time into one preallocated (len*n, 16)
+        output: the stack, the transform's transposes and its temporaries
+        stay B polys wide.  Equal to one ``ntt_many`` over the whole
+        stack."""
+        n = self.n
+        out = torch.empty((len(keys) * n, LIMBS), dtype=torch.int32,
+                          device=self.dev)
+        for lo in range(0, len(keys), B):
+            sl = keys[lo:lo + B]
+            stack = torch.cat([coeffs_fn(kk) for kk in sl])
+            out[lo * n:(lo + len(sl)) * n] = self._ntt_many(
+                stack, len(sl), inverse=False, shift_pows=shift_pows)
+        return out
 
     def static_subcoset_evals(self, s: int):
         """Sub-coset evaluations of the proof-independent quotient polys,
-        cached per pk per sub-coset."""
+        cached per pk per sub-coset.  On the large path they are
+        recomputed by ``evals_sliced`` at every call: at k=20 a cache of
+        all R sub-cosets (9.66 GB) saved no measurable time on one H100
+        and raised the prove's peak by 9.7 GB."""
+        shift_pows, _ = _subcoset_tables(self.k, self.ext_k, s, self.dev)
+        if self.large():
+            return self.evals_sliced(self.q_static_keys, self._coeffs_static,
+                                     shift_pows)
         out = self._static_evals.get(s)
         if out is None:
-            shift_np, _ = _subcoset_tables_np(self.k, self.ext_k, s)
             stack = torch.cat([self._coeffs_static(key)
                                for key in self.q_static_keys])
-            out = self._ntt_many(stack, len(self.q_static_keys), inverse=False,
-                                 shift_pows=self.tensor(shift_np))
+            out = self._ntt_many(stack, len(self.q_static_keys),
+                                 inverse=False, shift_pows=shift_pows)
             self._static_evals[s] = out
         return out
 
@@ -375,6 +474,52 @@ class _Phases:
                           gamma_m, y_m, shift_pows, zh_inv):
         """One sub-coset's quotient values: Horner-fold every constraint
         term with y, divide by Z_H."""
+        Ctx = self._subcoset_ctx(static_evals, dyn_evals, theta_m, beta_m,
+                                 gamma_m, shift_pows)
+        acc = None
+        for term in PROTO.constraint_terms(self.cs, Ctx):
+            acc = term if acc is None else F.add(
+                FR, F.mont_mul(FR, acc, y_m), term)
+        return F.mont_mul(FR, acc, zh_inv)
+
+    def n_constraint_terms(self) -> int:
+        perm = 2 * self.chunks + 1 if self.cs.perm_columns else 0
+        return len(self.cs.gates) + perm + 5 * self.n_lk
+
+    def _quotient_terms_slice(self, terms, count: int, y_m):
+        """Horner-y fold of the next ``count`` terms of the iterator
+        ``terms``.  (The reference's form takes [lo, hi) and re-traces the
+        whole term list, its compiler dropping the rest; eager terms are
+        computed where they are yielded, so the port walks one iterator
+        through the slices instead.)"""
+        acc = None
+        for term in itertools.islice(terms, count):
+            acc = term if acc is None else F.add(
+                FR, F.mont_mul(FR, acc, y_m), term)
+        return acc
+
+    def quotient_subcoset_sliced(self, static_evals, dyn_evals, theta_m,
+                                 beta_m, gamma_m, y_m, shift_pows, zh_inv,
+                                 n_parts: int = 3):
+        """The term fold in ``n_parts`` Horner partials joined by
+        y^(hi-lo) bridges, then the Z_H division: equal to
+        ``quotient_subcoset``."""
+        T = self.n_constraint_terms()
+        bounds = [round(j * T / n_parts) for j in range(n_parts + 1)]
+        terms = PROTO.constraint_terms(self.cs, self._subcoset_ctx(
+            static_evals, dyn_evals, theta_m, beta_m, gamma_m, shift_pows))
+        acc = None
+        for lo, hi in zip(bounds, bounds[1:]):
+            if lo == hi:
+                continue
+            part = self._quotient_terms_slice(terms, hi - lo, y_m)
+            acc = part if acc is None else F.add(
+                FR, F.mont_mul(FR, acc, F.pow_const(FR, y_m, hi - lo)), part)
+        return F.mont_mul(FR, acc, zh_inv)
+
+    def _subcoset_ctx(self, static_evals, dyn_evals, theta_m, beta_m, gamma_m,
+                      shift_pows):
+        """The protocol Context over one sub-coset's pre-evaluated stacks."""
         n = self.n
         by_key = {key: static_evals[i * n:(i + 1) * n]
                   for i, key in enumerate(self.q_static_keys)}
@@ -388,31 +533,18 @@ class _Phases:
             r = usable if rot == "u" else rot
             return torch.roll(arr, -r, 0) if r else arr
 
-        class Ctx(PROTO.Context):
-            alg = self.alg
-            one = F.const(FR, "one", self.dev)
-            theta, beta, gamma = theta_m, beta_m, gamma_m
-            l0 = by_key[("l0",)]
-            l_last = by_key[("l_last",)]
-            l_active = by_key[("l_active",)]
-            column = staticmethod(
-                lambda col, rot: rot_roll(by_key[("col", col)], rot))
-            perm_z = staticmethod(
-                lambda t, rot: rot_roll(by_key[("perm_z", t)], rot))
-            sigma = staticmethod(lambda i: by_key[("sigma", i)])
-            perm_id = staticmethod(
-                lambda i: F.mont_mul(FR, delta_pows[i], pts))
-            lookup_z = staticmethod(
-                lambda i, rot: rot_roll(by_key[("lookup_z", i)], rot))
-            lookup_a = staticmethod(
-                lambda i, rot: rot_roll(by_key[("lookup_a", i)], rot))
-            lookup_s = staticmethod(lambda i: by_key[("lookup_s", i)])
-
-        acc = None
-        for term in PROTO.constraint_terms(self.cs, Ctx):
-            acc = term if acc is None else F.add(
-                FR, F.mont_mul(FR, acc, y_m), term)
-        return F.mont_mul(FR, acc, zh_inv)
+        return _context(
+            alg=self.alg, one=F.const(FR, "one", self.dev),
+            theta=theta_m, beta=beta_m, gamma=gamma_m,
+            l0=by_key[("l0",)], l_last=by_key[("l_last",)],
+            l_active=by_key[("l_active",)],
+            column=lambda col, rot: rot_roll(by_key[("col", col)], rot),
+            perm_z=lambda t, rot: rot_roll(by_key[("perm_z", t)], rot),
+            sigma=lambda i: by_key[("sigma", i)],
+            perm_id=lambda i: F.mont_mul(FR, delta_pows[i], pts),
+            lookup_z=lambda i, rot: rot_roll(by_key[("lookup_z", i)], rot),
+            lookup_a=lambda i, rot: rot_roll(by_key[("lookup_a", i)], rot),
+            lookup_s=lambda i: by_key[("lookup_s", i)])
 
     def quotient_finish(self, q_flat):
         """Interleave the sub-coset values back to extended-coset order,
@@ -421,6 +553,25 @@ class _Phases:
         q_ext = q_flat.reshape(R, n, LIMBS).transpose(0, 1).reshape(R * n, LIMBS)
         h = P.coset_interp(self.dom_ext, q_ext)
         return h[:(self.d - 1) * n]
+
+    def _quotient_finish_split(self, q_flat, unscale, mix):
+        """R size-n INTTs, the unscale, and the R-point mix across the
+        sub-cosets (see _finish_split_tables) in place of the
+        2^ext_k-point interpolation: equal to ``quotient_finish``."""
+        n, R = self.n, self.ratio
+        dvals = F.mont_mul(FR, self._ntt_many(q_flat, R, inverse=True), unscale)
+        outs = []
+        for q in range(self.d - 1):
+            acc = None
+            for s in range(R):
+                t = F.mont_mul(FR, dvals[s * n:(s + 1) * n], mix[q, s])
+                acc = t if acc is None else F.add(FR, acc, t)
+            outs.append(acc)
+        return torch.cat(outs)
+
+    def quotient_finish_large(self, q_flat):
+        return self._quotient_finish_split(
+            q_flat, *_finish_split_tables(self.k, self.ext_k, self.d, self.dev))
 
     def h_combine(self, pieces_flat, xn_pows):
         n = self.n
@@ -445,6 +596,28 @@ class _Phases:
                 acc = t if acc is None else F.add(FR, acc, t)
                 idx += 1
             outs.append(acc)
+        return torch.cat(outs)
+
+    def shplonk_fold_large(self, coeffs_fn, members, w_np, B: int = 8):
+        """``shplonk_fold`` without the (M*n, 16) member concat: each
+        rotation-set cluster streams its members (coefficients from
+        ``coeffs_fn``) B at a time.  Equal to ``shplonk_fold``."""
+        n = self.n
+        w = self.tensor(w_np)
+        outs, idx = [], 0
+        for sz in self.shp_sizes:
+            acc = None
+            for lo in range(idx, idx + sz, B):
+                cnt = min(B, idx + sz - lo)
+                parts = [coeffs_fn(kk) for kk in members[lo:lo + cnt]]
+                # one member: a copy, never a view of the resident poly
+                stack = torch.cat(parts) if cnt > 1 else parts[0].clone()
+                part = F.mont_mul(FR, stack.reshape(cnt, n, LIMBS),
+                                  w[lo:lo + cnt, None])
+                for i in range(cnt):
+                    acc = part[i] if acc is None else F.add(FR, acc, part[i])
+            outs.append(acc)
+            idx += sz
         return torch.cat(outs)
 
     def shplonk_f(self, poly_flat, corr, zcs):
@@ -475,10 +648,7 @@ class _Phases:
             acc = t if acc is None else F.add(FR, acc, t)
         acc = acc.clone()
         acc[0] = F.sub(FR, acc[0], eval_m)
-        l_ev = P.coset_evals(self.dom, acc)
-        den = F.sub(FR, _coset_points(self.k, self.dev), z_m)
-        return P.coset_interp(
-            self.dom, F.mont_mul(FR, l_ev, F.batch_inv(FR, den)))
+        return self._shpl_div_interp(self._shpl_div_eval(acc, z_m))
 
     def hshp_blind_fix(self, h_shp, x_m, coef_m):
         """h_shp += coef * sum_i x^{n-1-i} X^i."""
@@ -497,8 +667,45 @@ class _Phases:
         return P.coset_interp(
             dom1, F.mont_mul(FR, f_ev, F.batch_inv(FR, acc)))[:self.n]
 
-    def shplonk_l(self, poly_flat, svals, h_shp, neg_zt_u, const_corr, u_m):
-        """L(X) and the final witness quotient W' = L / (X - u)."""
+    def _shplonk_h_split(self, f_acc, zt_coeffs_m, fold_sc, shift_pows2,
+                         unscale2, mix2):
+        """h = f / Z_T by two size-n sub-coset passes over domain(k+1),
+        the R = 2 case of ``_quotient_finish_split``: per sub-coset s,
+        fold f's rows past n in with x^n = shift_s^n (constant on the
+        sub-coset), shifted NTT_n, Horner Z_T over the sub-coset points,
+        times the batch inverse, INTT_n, unscale; deg h < n, so only the
+        q = 0 block of the mix survives.  Equal to ``shplonk_h``."""
+        n = self.n
+        tail = f_acc[n:]
+        nt = tail.shape[0]
+        omega_pows = self.dom.omega_powers(self.dev)
+        D = zt_coeffs_m.shape[0]
+        dsum = None
+        for s in range(2):
+            folded = f_acc[:n].clone()
+            folded[:nt] = F.add(FR, f_acc[:nt], F.mont_mul(FR, tail, fold_sc[s]))
+            f_ev = self._ntt_many(folded, 1, inverse=False,
+                                  shift_pows=shift_pows2[s])
+            pts = F.mont_mul(FR, omega_pows, shift_pows2[s][1])
+            acc = zt_coeffs_m[D - 1].expand(n, LIMBS)
+            for dd in range(D - 2, -1, -1):
+                acc = F.add(FR, F.mont_mul(FR, acc, pts), zt_coeffs_m[dd])
+            h_ev = F.mont_mul(FR, f_ev, F.batch_inv(FR, acc))
+            d_s = F.mont_mul(FR, self._ntt_many(h_ev, 1, inverse=True),
+                             unscale2[s * n:(s + 1) * n])
+            t = F.mont_mul(FR, d_s, mix2[0, s])
+            dsum = t if dsum is None else F.add(FR, dsum, t)
+        return dsum
+
+    def shplonk_h_large(self, f_acc, zt_coeffs_m):
+        return self._shplonk_h_split(
+            f_acc, zt_coeffs_m,
+            *_shplonk_h_tables(self.k, self.dev))
+
+    def ipa_l(self, poly_flat, svals, h_shp, neg_zt_u, const_corr):
+        """The SHPLONK residual L(X) = -Z_T(u) h + sum_g s_g p_g - const
+        before its division by (X - u) (the reference's IPA backend opens
+        L at u directly; ROADMAP A12)."""
         n = self.n
         acc = F.mont_mul(FR, h_shp, neg_zt_u)
         for g in range(svals.shape[0]):
@@ -506,10 +713,27 @@ class _Phases:
                 FR, poly_flat[g * n:(g + 1) * n], svals[g]))
         acc = acc.clone()
         acc[0] = F.sub(FR, acc[0], const_corr)
+        return acc
+
+    def _shpl_div_eval(self, acc, z_m):
+        """acc / (X - z) as values on the base coset, which never meets z."""
         l_ev = P.coset_evals(self.dom, acc)
-        den = F.sub(FR, _coset_points(self.k, self.dev), u_m)
-        return P.coset_interp(
-            self.dom, F.mont_mul(FR, l_ev, F.batch_inv(FR, den)))
+        den = F.sub(FR, _coset_points(self.k, self.dev), z_m)
+        return F.mont_mul(FR, l_ev, F.batch_inv(FR, den))
+
+    def _shpl_div_interp(self, vals):
+        return P.coset_interp(self.dom, vals)
+
+    def shplonk_l(self, poly_flat, svals, h_shp, neg_zt_u, const_corr, u_m):
+        """L(X) and the final witness quotient W' = L / (X - u)."""
+        return self._shpl_div_interp(self._shpl_div_eval(
+            self.ipa_l(poly_flat, svals, h_shp, neg_zt_u, const_corr), u_m))
+
+    # the reference runs shplonk_l's three stages as three executables
+    # from k=19 on; run eagerly, that split is this same sequence of ops,
+    # so the prover calls shplonk_l on both paths (the name stays for the
+    # tests that hold it against the reference's)
+    shplonk_l_large = shplonk_l
 
 
 def _get_phases(pk: ProvingKey) -> _Phases:
@@ -552,19 +776,21 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     ``multiopen``: "shplonk" (default) or "gwc" (one witness per
     rotation point).  ``lookup_sort``: "field" (default; halo2's order
     by canonical field value) or "packed" (uint32 keys of byte-ranged
-    columns; other proof bytes, the same argument).  Single device and
-    k <= 18 only: ``mesh``, ``checkpoint_dir`` and larger k raise
-    NotImplementedError."""
+    columns; other proof bytes, the same argument).  ``checkpoint_dir``:
+    save each heavy phase there and resume a crashed prove at the first
+    incomplete phase (backend/resume.py).  Single device and k <= MAX_K
+    only: ``mesh`` and larger k raise NotImplementedError."""
     if mesh is not None:
         raise NotImplementedError("mesh proving is not ported (ROADMAP A15)")
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoint/resume is not ported (ROADMAP A13)")
     if multiopen not in ("shplonk", "gwc"):
         raise ValueError(f"unknown multiopen {multiopen!r}")
     if lookup_sort not in ("field", "packed"):
         raise ValueError(f"unknown lookup_sort {lookup_sort!r}")
     if pk.vk.k > MAX_K:
-        raise NotImplementedError(f"k={pk.vk.k} > {MAX_K} (sliced phases)")
+        raise NotImplementedError(
+            f"k={pk.vk.k} > {MAX_K}: k={MAX_K} is the largest k proved on one "
+            "80 GB H100; the two-pass NTT would reach k=22, but nothing above "
+            f"k={MAX_K} has been run")
     if lookup_sort == "packed":
         for lk in pk.vk.cs.lookups:
             _check_lookup_packable(pk.layout, lk)
@@ -598,58 +824,110 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
         assert all(0 <= int(v) < (1 << 16) for v in vals)
         inst_arr[i, :len(vals)] = [int(v) % (1 << 16) for v in vals]
 
+    large = ph.large()
+    empty = torch.zeros((0, LIMBS), dtype=torch.int32, device=dev)
+    ck = None
+    if checkpoint_dir is not None:
+        ck = RES.ProveCheckpoint(checkpoint_dir, RES.prove_key_material(
+            vk.digest, values, instances, seed, multiopen, lookup_sort))
+
+    def restored(st, names):
+        """A loaded phase's tensors (on the device) and points; the RNG
+        continues from the saved state."""
+        arrays, pts, rng_state = st
+        RES.restore_rng(rng, rng_state)
+        return [T(arrays[name]) for name in names], pts
+
     # ---- phase 1: advice lift + blind + INTT + commits ----------------------
-    adv_blinding = T(_rand_field(rng, len(ph.adv_ids), n - usable))
-    all_fld, adv_coeffs, inst_coeffs = ph.advice_phase(
-        values, adv_blinding, torch.as_tensor(inst_arr, device=dev))
-    for pt in _commit_pts(ph, adv_coeffs, len(ph.adv_ids)):
+    st = ck.load("advice") if ck else None
+    if st is None:
+        adv_blinding = T(_rand_field(rng, len(ph.adv_ids), n - usable))
+        all_fld, adv_coeffs, inst_coeffs = ph.advice_phase(
+            values, adv_blinding, torch.as_tensor(inst_arr, device=dev))
+        adv_pts = _commit_pts(ph, adv_coeffs, len(ph.adv_ids))
+        if ck:
+            ck.save("advice", {"all_fld": all_fld, "adv_coeffs": adv_coeffs,
+                               "inst_coeffs": inst_coeffs}, adv_pts, rng)
+    else:
+        (all_fld, adv_coeffs, inst_coeffs), adv_pts = restored(
+            st, ("all_fld", "adv_coeffs", "inst_coeffs"))
+    for pt in adv_pts:
         tr.write_point(pt)
+    SAN.check_phase(FR, "advice", adv_coeffs=adv_coeffs, inst_coeffs=inst_coeffs)
 
     theta = tr.squeeze_challenge()
     theta_m = enc(theta)
 
     # ---- phase 2: lookup permuted pairs ---------------------------------------
-    if ph.n_lk:
-        bl_a = T(_rand_field(rng, ph.n_lk, n - usable))
-        bl_s = T(_rand_field(rng, ph.n_lk, n - usable))
-        lk_ap, lk_sp, lk_a_coeffs, lk_s_coeffs = ph.lookup_phase(
-            values, all_fld, theta_m, bl_a, bl_s, lookup_sort)
-        polys = []
-        for i in range(ph.n_lk):       # transcript order: a'_i, s'_i
-            polys += [lk_a_coeffs[i * n:(i + 1) * n], lk_s_coeffs[i * n:(i + 1) * n]]
-        for pt in commit_many(pk.srs, polys):
-            tr.write_point(pt)
+    st = ck.load("lookup") if ck else None
+    if st is None:
+        if ph.n_lk:
+            bl_a = T(_rand_field(rng, ph.n_lk, n - usable))
+            bl_s = T(_rand_field(rng, ph.n_lk, n - usable))
+            lk_ap, lk_sp, lk_a_coeffs, lk_s_coeffs = ph.lookup_phase(
+                values, all_fld, theta_m, bl_a, bl_s, lookup_sort)
+            polys = []
+            for i in range(ph.n_lk):       # transcript order: a'_i, s'_i
+                polys += [lk_a_coeffs[i * n:(i + 1) * n],
+                          lk_s_coeffs[i * n:(i + 1) * n]]
+            lk_pts = commit_many(pk.srs, polys)
+        else:
+            lk_ap = lk_sp = lk_a_coeffs = lk_s_coeffs = empty
+            lk_pts = []
+        if ck:
+            ck.save("lookup", {"lk_ap": lk_ap, "lk_sp": lk_sp,
+                               "lk_a_coeffs": lk_a_coeffs,
+                               "lk_s_coeffs": lk_s_coeffs}, lk_pts, rng)
     else:
-        lk_a_coeffs = lk_s_coeffs = torch.zeros((0, LIMBS), dtype=torch.int32,
-                                                device=dev)
+        (lk_ap, lk_sp, lk_a_coeffs, lk_s_coeffs), lk_pts = restored(
+            st, ("lk_ap", "lk_sp", "lk_a_coeffs", "lk_s_coeffs"))
+    for pt in lk_pts:
+        tr.write_point(pt)
+    SAN.check_phase(FR, "lookup", a_coeffs=lk_a_coeffs, s_coeffs=lk_s_coeffs)
 
     beta = tr.squeeze_challenge()
     gamma = tr.squeeze_challenge()
     beta_m, gamma_m = enc(beta), enc(gamma)
 
     # ---- phase 3: grand products + random poly --------------------------------
-    z_blind = T(_rand_field(rng, ph.chunks, bf))
-    lkz_blind = T(_rand_field(rng, max(ph.n_lk, 1), bf))
-    if ph.chunks:
-        z_perm_coeffs = ph.perm_products(all_fld, pk.perm_maps[0],
-                                         pk.perm_maps[1], beta_m, gamma_m,
-                                         z_blind)
-    else:
-        z_perm_coeffs = torch.zeros((0, LIMBS), dtype=torch.int32, device=dev)
-    if ph.n_lk:
-        z_all = ph.lookup_products_all(all_fld, lk_ap, lk_sp, theta_m, beta_m,
-                                       gamma_m, lkz_blind)
-        lkz_coeffs = ph._ntt_many(z_all, ph.n_lk, inverse=True)
-    else:
-        lkz_coeffs = torch.zeros((0, LIMBS), dtype=torch.int32, device=dev)
-    random_coeffs = T(_rand_field(rng, n))
-    for pt in commit_many(
+    st = ck.load("products") if ck else None
+    if st is None:
+        z_blind = T(_rand_field(rng, ph.chunks, bf))
+        lkz_blind = T(_rand_field(rng, max(ph.n_lk, 1), bf))
+        if ph.chunks:
+            z_perm_coeffs = ph.perm_products(all_fld, pk.perm_maps[0],
+                                             pk.perm_maps[1], beta_m, gamma_m,
+                                             z_blind)
+        else:
+            z_perm_coeffs = empty
+        if ph.n_lk:
+            lk_products = (ph.lookup_products_streamed if large
+                           else ph.lookup_products_all)
+            z_all = lk_products(all_fld, lk_ap, lk_sp, theta_m, beta_m,
+                                gamma_m, lkz_blind)
+            lkz_coeffs = ph._ntt_many(z_all, ph.n_lk, inverse=True)
+            del z_all
+        else:
+            lkz_coeffs = empty
+        random_coeffs = T(_rand_field(rng, n))
+        prod_pts = commit_many(
             pk.srs,
             [z_perm_coeffs[t * n:(t + 1) * n] for t in range(ph.chunks)]
             + [lkz_coeffs[i * n:(i + 1) * n] for i in range(ph.n_lk)]
-            + [random_coeffs]):
+            + [random_coeffs])
+        if ck:
+            ck.save("products", {"z_perm_coeffs": z_perm_coeffs,
+                                 "lkz_coeffs": lkz_coeffs,
+                                 "random_coeffs": random_coeffs}, prod_pts, rng)
+    else:
+        (z_perm_coeffs, lkz_coeffs, random_coeffs), prod_pts = restored(
+            st, ("z_perm_coeffs", "lkz_coeffs", "random_coeffs"))
+    for pt in prod_pts:
         tr.write_point(pt)
-    del all_fld
+    SAN.check_phase(FR, "products", z_perm=z_perm_coeffs, lkz=lkz_coeffs,
+                    random=random_coeffs)
+    # the evaluation-form tensors are dead from here on
+    del all_fld, lk_ap, lk_sp
 
     y = tr.squeeze_challenge()
     y_m = enc(y)
@@ -677,30 +955,45 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
             return _sl(lk_s_coeffs, key[1])
         return ph._coeffs_static(key)
 
-    q_subs = []
-    for s in range(ph.ratio):
-        shift_np, zh_inv_np = _subcoset_tables_np(ph.k, ph.ext_k, s)
-        shift_pows = T(shift_np)
-        dyn_stack = torch.cat([coeffs_for(key) for key in ph.q_dyn_keys])
-        dyn_evals = ph._ntt_many(dyn_stack, len(ph.q_dyn_keys), inverse=False,
-                                 shift_pows=shift_pows)
-        del dyn_stack
-        q_subs.append(ph.quotient_subcoset(
-            ph.static_subcoset_evals(s), dyn_evals, theta_m, beta_m, gamma_m,
-            y_m, shift_pows, T(zh_inv_np)))
-        del dyn_evals
-    pieces = ph.quotient_finish(torch.cat(q_subs))
-    del q_subs
-    piece_pts = _commit_pts(ph, pieces, ph.d - 1)
-    n_qb = ph.d - 2 if pk.srs.g1_extra is not None else 0
-    if n_qb > 0:
-        qb_limbs = _rand_field(rng, n_qb)
+    st = ck.load("quotient") if ck else None
+    if st is None:
+        q_subs = []
+        for s in range(ph.ratio):
+            shift_pows, zh_inv = _subcoset_tables(ph.k, ph.ext_k, s, dev)
+            if large:
+                dyn_evals = ph.evals_sliced(ph.q_dyn_keys, coeffs_for,
+                                            shift_pows)
+                qsub = ph.quotient_subcoset_sliced
+            else:
+                dyn_stack = torch.cat([coeffs_for(key) for key in ph.q_dyn_keys])
+                dyn_evals = ph._ntt_many(dyn_stack, len(ph.q_dyn_keys),
+                                         inverse=False, shift_pows=shift_pows)
+                del dyn_stack
+                qsub = ph.quotient_subcoset
+            q_subs.append(qsub(ph.static_subcoset_evals(s), dyn_evals, theta_m,
+                               beta_m, gamma_m, y_m, shift_pows, zh_inv))
+            del dyn_evals
+        finish = ph.quotient_finish_large if large else ph.quotient_finish
+        pieces = finish(torch.cat(q_subs))
+        del q_subs
+        piece_pts = _commit_pts(ph, pieces, ph.d - 1)
+        n_qb = ph.d - 2 if pk.srs.g1_extra is not None else 0
+        qb_limbs = _rand_field(rng, n_qb) if n_qb > 0 else np.zeros((0, LIMBS),
+                                                                    np.uint32)
         q_blinds = [F.limbs_to_int(qb_limbs[j]) for j in range(n_qb)]
-        piece_pts = _stagger_blind_pieces(piece_pts, q_blinds, pk.srs.g1_extra)
+        if q_blinds:
+            piece_pts = _stagger_blind_pieces(piece_pts, q_blinds,
+                                              pk.srs.g1_extra)
+        if ck:
+            ck.save("quotient", {"pieces": pieces, "qblinds": qb_limbs},
+                    piece_pts, rng)
     else:
-        q_blinds = []
+        (pieces,), piece_pts = restored(st, ("pieces",))
+        qb = st[0]["qblinds"]
+        q_blinds = [F.limbs_to_int(qb[j]) for j in range(qb.shape[0])]
     for pt in piece_pts:
         tr.write_point(pt)
+    SAN.check_phase(FR, "quotient", pieces=pieces)
 
     x = tr.squeeze_challenge()
     xn = pow(x, n, FR.modulus)
@@ -734,10 +1027,14 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
         by_rot.setdefault(rot, []).append(key)
     evals = {}
     for rot, keys in by_rot.items():
-        stack = torch.cat([poly_coeffs(kk) for kk in keys])
-        vals = ph.eval_many(stack, enc(rot_point(rot)), len(keys))
-        for kk, v in zip(keys, FR.decode(vals)):
-            evals[(kk, rot)] = v
+        x_m = enc(rot_point(rot))
+        step = 12 if large else len(keys)     # large: 12 polys per stack
+        for lo in range(0, len(keys), step):
+            sl = keys[lo:lo + step]
+            stack = torch.cat([poly_coeffs(kk) for kk in sl])
+            vals = ph.eval_many(stack, x_m, len(sl))
+            for kk, v in zip(sl, FR.decode(vals)):
+                evals[(kk, rot)] = v
     for key, rot in plan:
         if key[0] != "h":
             tr.write_scalar(evals[(key, rot)])
@@ -764,6 +1061,8 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
             w = ph.gwc_witness(stack, T(vp), enc(ev), enc(rot_point(rot)))
             del stack
             tr.write_point(commit_affine(pk.srs, w))
+        if ck:
+            ck.clear()
         return tr.finalize()
 
     # ---- SHPLONK multiopen ----------------------------------------------------
@@ -808,13 +1107,16 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
             [FR.to_mont_host(zc * vpw % FR.modulus) for zc in z_rest])
         r_at[gi] = (pts, ev_fold)
 
-    members_flat = torch.cat([poly_coeffs(key) for key in members])
-    poly_flat = ph.shplonk_fold(members_flat, T(w_np))
-    del members_flat
+    if large:
+        poly_flat = ph.shplonk_fold_large(poly_coeffs, members, w_np)
+    else:
+        members_flat = torch.cat([poly_coeffs(key) for key in members])
+        poly_flat = ph.shplonk_fold(members_flat, T(w_np))
+        del members_flat
     f_acc = ph.shplonk_f(poly_flat, T(corr_np), T(zcs_np))
     zt_coeffs_m = T(F.ints_to_limbs_fast(
         [FR.to_mont_host(c) for c in P.vanishing_poly_coeffs(t_points)]))
-    h_shp = ph.shplonk_h(f_acc, zt_coeffs_m)
+    h_shp = (ph.shplonk_h_large if large else ph.shplonk_h)(f_acc, zt_coeffs_m)
     if cn:
         h_shp = ph.hshp_blind_fix(h_shp, enc(x), enc(W_h * cn % FR.modulus))
     tr.write_point(commit_affine(pk.srs, h_shp))
@@ -839,7 +1141,10 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
                           - s * y2w % FR.modulus * cn % FR.modulus
                           * (gn - xn)) % FR.modulus
 
-    q_w = ph.shplonk_l(poly_flat, T(svals_np), h_shp,
-                       enc(FR.modulus - zt_u), enc(const_corr), enc(u))
+    q_w = ph.shplonk_l(
+        poly_flat, T(svals_np), h_shp, enc(FR.modulus - zt_u),
+        enc(const_corr), enc(u))
     tr.write_point(commit_affine(pk.srs, q_w))
+    if ck:
+        ck.clear()
     return tr.finalize()

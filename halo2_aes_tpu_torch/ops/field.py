@@ -350,6 +350,14 @@ def powers(spec: FieldSpec, base, count: int):
     return arr[:count]
 
 
+def powers_table(spec: FieldSpec, base: int, count: int, device) -> torch.Tensor:
+    """[1, base, ..., base^(count-1)] as Montgomery limbs on ``device``,
+    by ``powers`` (log-depth doubling through K1 on a CUDA device, ~20
+    launches for 2^20 entries).  Field products are exact, so this
+    equals the host loop ``spec.host_powers``."""
+    return powers(spec, encode(spec, base, torch.device(device)), count)
+
+
 def tree_sum(spec: FieldSpec, a, axis: int = 0):
     """Modular sum along an axis via log-depth pairwise folding."""
     a = a.movedim(axis, 0)

@@ -68,26 +68,20 @@ def _stage_tables(spec: F.FieldSpec, lt: int, inverse: bool) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _mid_table(spec: F.FieldSpec, k: int, k1: int, inverse: bool) -> np.ndarray:
+def _mid_table(spec: F.FieldSpec, k: int, k1: int, inverse: bool,
+               device) -> torch.Tensor:
     """(n, 16) Montgomery table w^(i2*k1) in pass-1 output order (i2 row,
-    bit-reversed k1 lane); the inverse folds in n^-1
-    (pallas_ntt._mid_table, limbs last)."""
-    p = spec.modulus
-    n, n1 = 1 << k, 1 << k1
-    n2 = n >> k1
-    w = _root(spec, k, inverse)
-    rev1 = _bitrev(k1)
-    scale = pow(n, -1, p) if inverse else 1
-    out = []
-    for i2 in range(n2):
-        base = pow(w, i2, p)
-        acc = scale
-        row = []
-        for _ in range(n1):
-            row.append(acc)
-            acc = (acc * base) % p
-        out.extend(row[j] for j in rev1)
-    return spec.encode(out)
+    bit-reversed k1 lane) on ``device``; the inverse folds in n^-1
+    (pallas_ntt._mid_table, limbs last).  Gathered from one powers table
+    of w, since w^(i2*j) = w^(i2*j mod n)."""
+    n = 1 << k
+    idx = (np.arange(n >> k1)[:, None] * _bitrev(k1)[None, :]) % n
+    device = torch.device(device)
+    out = _powers_table(spec, _root(spec, k, inverse), n, device)[
+        torch.from_numpy(idx.reshape(-1)).to(device)]
+    if inverse:
+        out = F.mont_mul(spec, out, F.encode(spec, pow(n, -1, spec.modulus), device))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,6 +98,9 @@ def _out_perm(k: int, k1: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _dev_limbs(fn, args, device):
     return F.limbs(fn(*args), device)
+
+
+_powers_table = functools.lru_cache(maxsize=None)(F.powers_table)
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,8 +125,7 @@ class Domain:
     def omega_powers(self, device, count=None, inverse: bool = False):
         """[1, w, w^2, ...] table (count defaults to n) on ``device``."""
         base = self.omega_inv if inverse else self.omega
-        return _dev_limbs(self.spec.host_powers, (base, count or self.n),
-                          torch.device(device))
+        return _powers_table(self.spec, base, count or self.n, torch.device(device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,7 +156,7 @@ def ntt_flat(dom: Domain, flat, count: int, inverse: bool = False):
     x = flat.reshape(count, n1, n2, LIMBS).transpose(1, 2).reshape(
         count * n2, n1, LIMBS)
     x = _pass(spec, x, k1, inverse)
-    mid = _dev_limbs(_mid_table, (spec, k, k1, inverse), dev)
+    mid = _mid_table(spec, k, k1, inverse, dev)
     x = F.mont_mul(spec, x.reshape(count, n, LIMBS), mid)
     x = x.reshape(count, n2, n1, LIMBS).transpose(1, 2).reshape(
         count * n1, n2, LIMBS)

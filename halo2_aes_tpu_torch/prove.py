@@ -6,11 +6,17 @@ Usage:
   python -m halo2_aes_tpu_torch.prove --k 17 --blocks 384 --sets 4 \
       --decrypt --expose-ciphertext --verify --device cuda
   python -m halo2_aes_tpu_torch.prove ... --backend kzg-gwc
+  python -m halo2_aes_tpu_torch.prove --k 20 --sets 4 --blocks 3082 \
+      --tagged --verify --device cuda --checkpoint-dir ckpt
 
 Blinding always comes from os.urandom; ``--seed`` seeds only the random
 AES key and plaintexts.  With ``--expose-ciphertext`` the verifier is
 given the public bytes (the ciphertext, or with ``--decrypt`` the
 recovered plaintext) from an oracle run apart from the witness.
+``--checkpoint-dir`` saves each heavy prove phase there, so that a
+rerun of a crashed prove resumes at the first incomplete phase.  The
+SRS, its MSM window tables and the keygen commitments are cached in
+``ptau/`` (3.2 GB at k=20).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 def run(k: int, n_sets: int, blocks: int, tagged: bool, do_verify: bool,
         device: str, seed: int = 0, srs_cache: str | None = "ptau",
         expose_ciphertext: bool = False, decrypt: bool = False,
-        backend: str = "kzg-shplonk") -> dict:
+        backend: str = "kzg-shplonk", checkpoint_dir: str | None = None) -> dict:
     from halo2_aes_tpu_torch.backend import get_backend
     from halo2_aes_tpu_torch.backend import keygen as KG
     from halo2_aes_tpu_torch.circuit import witness
@@ -78,7 +84,7 @@ def run(k: int, n_sets: int, blocks: int, tagged: bool, do_verify: bool,
         return witness.assemble_values(layout, witness.build_pool(key, pts))
 
     values = timed("witness", build_values)
-    proof = timed("prove", be.prove, pk, values)
+    proof = timed("prove", be.prove, pk, values, checkpoint_dir=checkpoint_dir)
     result = {"proof_bytes": len(proof), "timings": timings, "blocks": blocks,
               "k": k, "n_sets": n_sets, "tagged_ops": tagged or decrypt,
               "mode": "decrypt" if decrypt else "encrypt",
@@ -117,6 +123,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default="kzg-shplonk",
                     choices=["kzg-shplonk", "kzg-gwc"],
                     help="KZG with SHPLONK or GWC multiopen")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save per-phase prove checkpoints here and resume "
+                         "a crashed prove (backend/resume.py)")
     return ap
 
 
@@ -125,7 +134,8 @@ def main():
     print(json.dumps(run(args.k, args.sets, args.blocks, args.tagged,
                          args.verify, args.device, args.seed,
                          expose_ciphertext=args.expose_ciphertext,
-                         decrypt=args.decrypt, backend=args.backend)))
+                         decrypt=args.decrypt, backend=args.backend,
+                         checkpoint_dir=args.checkpoint_dir)))
 
 
 if __name__ == "__main__":

@@ -11,7 +11,8 @@ prove; ``gwc``: GWC multiopen; ``packed``: packed lookup keys), each
 reported with its kernel launch counts.  ``--phases`` times one more
 default prove round by round:
 the device is synchronised at every Fiat-Shamir challenge, and each
-interval is named after the prover phase that ends there.
+interval is named after the prover phase that ends there, with its
+peak device memory.
 ``--profile`` runs one more prove under ``torch.profiler`` and reports
 device time and launches by kernel name, and device time over the
 profiled wall.  ``--tree`` imports ``halo2_aes_tpu_torch`` from another
@@ -32,12 +33,6 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = dict(k=17, n_sets=4, n_blocks=384, tagged_ops=True)
 
-# Fiat-Shamir challenges in prove order -> the phase each one closes;
-# a challenge squeezed right after another closes nothing new
-PHASE_AT = {"theta": "advice", "beta": "lookup_permuted", "gamma": None,
-            "y": "grand_products", "x": "quotient", "y2": "evals", "v": None,
-            "u": "shplonk_h", "finalize": "shplonk_l"}
-CHALLENGES = ["theta", "beta", "gamma", "y", "x", "y2", "v", "u"]
 VARIANTS = {"shplonk": {}, "gwc": {"multiopen": "gwc"},
             "packed": {"lookup_sort": "packed"}}
 
@@ -58,42 +53,6 @@ def timed_prove(PV, pk, values, dev, **opts):
     torch.cuda.synchronize(dev)
     s = time.perf_counter() - t0
     return s, {k: v - before[k] for k, v in launches().items()}
-
-
-def phase_prove(PV, pk, values, dev) -> dict:
-    """One prove, synchronised and timed at every transcript challenge."""
-    import torch
-
-    from halo2_aes_tpu_torch.backend.transcript import TranscriptWriter
-
-    marks = []
-    squeeze, finalize = TranscriptWriter.squeeze_challenge, TranscriptWriter.finalize
-
-    def mark(label):
-        torch.cuda.synchronize(dev)
-        marks.append((label, time.perf_counter()))
-
-    def hooked_squeeze(self):
-        mark(CHALLENGES[len(marks) - 1])
-        return squeeze(self)
-
-    def hooked_finalize(self):
-        mark("finalize")
-        return finalize(self)
-
-    TranscriptWriter.squeeze_challenge = hooked_squeeze
-    TranscriptWriter.finalize = hooked_finalize
-    try:
-        mark("start")
-        PV.prove(pk, values)
-    finally:
-        TranscriptWriter.squeeze_challenge = squeeze
-        TranscriptWriter.finalize = finalize
-    phases, current = {}, None
-    for (_, t_prev), (label, t) in zip(marks, marks[1:]):
-        current = PHASE_AT[label] or current
-        phases[current] = phases.get(current, 0.0) + t - t_prev
-    return phases
 
 
 def profiled_prove(PV, pk, values, dev) -> dict:
@@ -148,6 +107,7 @@ def main() -> int:
     from halo2_aes_tpu_torch.backend import srs as SRS
     from halo2_aes_tpu_torch.circuit import witness
     from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
+    from torch_phases import phase_prove       # beside this script
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -174,7 +134,8 @@ def main() -> int:
     out = {"tree": os.path.relpath(os.path.abspath(args.tree), REPO),
            "card": card, **FLAGSHIP, **variants[names[0]], "variants": variants}
     if args.phases:
-        out["phases_s"] = phase_prove(PV, pk, values, dev)
+        out["phases_s"], out["phase_peak_bytes"] = phase_prove(
+            lambda: PV.prove(pk, values), dev)
     if args.profile:
         out["profile"] = profiled_prove(PV, pk, values, dev)
     line = json.dumps(out)

@@ -154,13 +154,17 @@ def test_bad_witness_rejected(keys):
                         instances=TOYS[name][2])
 
 
-def test_unported_options_raise(keys):
+def test_unported_options_raise(keys, monkeypatch):
+    """mesh proving, the IPA backend and a k above the port's bound
+    raise NotImplementedError."""
     _, _, _, values, pk, _ = keys
-    for kw in ({"mesh": object()}, {"checkpoint_dir": "x"}):
-        with pytest.raises(NotImplementedError):
-            prover.prove(pk, values, seed=0, **kw)
+    with pytest.raises(NotImplementedError):
+        prover.prove(pk, values, seed=0, mesh=object())
     with pytest.raises(NotImplementedError):
         get_backend("ipa")
+    monkeypatch.setattr(prover, "MAX_K", K - 1)
+    with pytest.raises(NotImplementedError, match=f"k={K} > {K - 1}"):
+        prover.prove(pk, values, seed=0)
 
 
 def test_instance_toy_changed_instance_rejected(srs_pair):
@@ -218,3 +222,16 @@ def test_cli_parses_decrypt_expose_and_gwc():
         True, True, "kzg-gwc")
     with pytest.raises(SystemExit):
         cli.parser().parse_args(["--backend", "ipa", "--device", "cuda"])
+
+
+def test_cli_parses_checkpoint_dir():
+    """The k=20 command line of the reference prover binary's shape, with a
+    checkpoint directory; none by default."""
+    from halo2_aes_tpu_torch import prove as cli
+
+    args = cli.parser().parse_args(
+        ["--k", "20", "--sets", "4", "--blocks", "3082", "--tagged", "--verify",
+         "--device", "cuda", "--checkpoint-dir", "ckpt"])
+    assert (args.k, args.sets, args.blocks, args.checkpoint_dir) == (
+        20, 4, 3082, "ckpt")
+    assert cli.parser().parse_args(["--device", "cpu"]).checkpoint_dir is None
