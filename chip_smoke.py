@@ -5,12 +5,15 @@
 
 Phases, each printing one JSON line as it ends:
   0 device      the card (fails without CUDA), its name and power limit
-  1 build       nvcc-builds the kernels of csrc/ (K1 mont_mul, K2 ntt
-                pass, K3 curve add, P1 mul probe, P2a/P2b Montgomery
-                probes on limb-major planes)
-  2 kernels     each kernel against its plain PyTorch version, bit-exact,
-                on card tensors at its path's shapes, with times (K1-K3
-                also at the k=20 prove's shapes)
+  1 build       nvcc-builds the kernels of csrc/ (K1 mont_mul, K2 the fused
+                NTT pass, K3 curve add / fold / masked add / doublings, P1
+                mul probe, P2a/P2b Montgomery probes on limb-major
+                planes), one nvcc per source in parallel
+  2 kernels     each kernel and entry against its plain PyTorch version,
+                bit-exact, on card tensors at its path's shapes, with times
+                and the card's bound for the same work (K1-K3 also at the
+                k=20 prove's shapes, where one ntt_many must launch K2
+                twice, K1 never and no PyTorch kernel)
   3 golden      the K=6 golden proofs (toy, tagged toy, instance toy;
                 GWC and packed-lookup proofs of the first two) proved on
                 the card equal the JAX reference's committed bytes and
@@ -110,6 +113,44 @@ def _random_field(spec, rows: int, rng, device):
     return F.limbs(limbs.astype(np.uint32), device)
 
 
+# H100 SXM peaks the bounds are stated against: device memory 3.35 TB/s;
+# 32-bit integer multiply-adds at half the 67 TFLOP/s float32 rate's 33.5e12
+# fused multiply-adds a second (64 of an SM's 128 lanes multiply integers)
+MEM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 16.75e12
+MONT_MUL_IMADS = 136        # 8 x 8 products, 8 x 8 reduction, 8 for m
+ELEM_BYTES = 64             # one field element in the int32 limb layout
+ADD_IMADS = 12 * MONT_MUL_IMADS
+DOUBLE_IMADS = 8 * MONT_MUL_IMADS
+
+
+def bound(nbytes: float, imads: float) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, or the multiply-adds at the
+    integer rate, whichever is larger."""
+    by_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    by_ops = imads / IMAD_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "imads": imads}
+
+
+def add_bound(a: dict, b: dict) -> dict:
+    """The bound of two calls timed together (their times are summed)."""
+    return bound(a["bytes"] + b["bytes"], a["imads"] + b["imads"]) if a else b
+
+
+def ntt_pass_bound(count: int, k: int, lt: int, mul_in: bool, mul_out) -> dict:
+    """One fused pass: the stack in and out, the tables it multiplies by
+    read once, the twiddles; lt/2 butterflies an element plus the
+    multiplies on load and in the epilogue."""
+    n = 1 << k
+    tables = (n if mul_in else 0) + (mul_out or 0) + (1 << lt) // 2
+    muls = lt / 2 + bool(mul_in) + bool(mul_out)
+    return bound((2 * count * n + tables) * ELEM_BYTES,
+                 count * n * muls * MONT_MUL_IMADS)
+
+
 def phase_kernels(dev) -> dict:
     """Every kernel against its plain version, bit-exact, with times."""
     import numpy as np
@@ -147,38 +188,61 @@ def phase_kernels(dev) -> dict:
         k1["ms"] += _time_ms(lambda: cuda_field.mont_mul(spec, a, b), 100)
         k1["plain_ms"] += _time_ms(lambda: cuda_field.mont_mul_plain(spec, a, b), 3, 3)
     k1["shape"] = "2 x (2^20 pairs)"
+    k1.update(bound(2 * 3 * ELEM_BYTES << 20, 2 * MONT_MUL_IMADS << 20))
     rec["K1"] = k1
 
-    # K2: the passes of k=17 count=4 (T=512 and T=256), forward and
-    # inverse, and k=6 (single pass); plus an NTT round trip at k=17
+    # K2: the fused passes of k=17 (T=512 then T=256; count 4 and the odd
+    # count 3) with a shift row on load and the mid table in the epilogue,
+    # the single-pass form (k=6 and k=11, n^-1 for the inverse), forward
+    # and inverse; an NTT round trip at k=17; ntt_many on the card against
+    # the plain composition on the host at k=12
     k2 = {"errors": {}, "ms": 0.0, "plain_ms": 0.0}
-    for k, count in ((17, 4), (6, 4)):
+    k2_bound = None
+    for k, count in ((17, 4), (17, 3), (6, 4), (11, 1)):
         n = 1 << k
-        if k <= cuda_ntt.MAX_LT:
-            shapes = [(count, k)]
-        else:
-            k1_ = (k + 1) // 2
-            shapes = [(count * (n >> k1_), k1_), (count * (1 << k1_), k - k1_)]
         for inverse in (False, True):
-            for rows, lt in shapes:
-                x = _random_field(F.FR, rows << lt, rng, dev).reshape(rows, 1 << lt, F.LIMBS)
-                tw = F.limbs(N._stage_tables(F.FR, lt, inverse), dev)
-                out = cuda_ntt.ntt_pass(F.FR, x, tw)
-                ref = cuda_ntt.ntt_pass_plain(F.FR, x, tw)
-                e = err(out, ref)
+            x = _random_field(F.FR, count * n, rng, dev)
+            shift = _random_field(F.FR, n, rng, dev)
+            if k <= cuda_ntt.MAX_LT:
+                n_inv = F.encode(F.FR, N.domain(F.FR, k).n_inv, dev) if inverse else None
+                steps = [(k, False, shift, n_inv)]
+            else:
+                k1_ = (k + 1) // 2
+                steps = [(k1_, True, shift, N._mid_table(F.FR, k, k1_, inverse, dev)),
+                         (k - k1_, False, None, None)]
+            for lt, transposed, mul_in, mul_out in steps:
+                tw = N._twiddles(F.FR, lt, inverse, dev)
+                args = (F.FR, x, count, k, lt, tw, transposed, mul_in, mul_out)
+                out = cuda_ntt.ntt_fused(*args)
+                e = err(out, cuda_ntt.ntt_fused_plain(*args))
+                name = f"k{k}_x{count}_lt{lt}_{'inv' if inverse else 'fwd'}"
                 if e:
-                    raise AssertionError(f"K2 k={k} lt={lt} inv={inverse}: err {e}")
-                k2["errors"][f"k{k}_lt{lt}_{'inv' if inverse else 'fwd'}"] = e
-                if k == 17 and not inverse:
-                    k2["ms"] += _time_ms(lambda: cuda_ntt.ntt_pass(F.FR, x, tw), 100)
+                    raise AssertionError(f"K2 {name}: err {e}")
+                k2["errors"][name] = e
+                if (k, count, inverse) == (17, 4, False):
+                    k2["ms"] += _time_ms(lambda: cuda_ntt.ntt_fused(*args), 100)
                     k2["plain_ms"] += _time_ms(
-                        lambda: cuda_ntt.ntt_pass_plain(F.FR, x, tw), 2, 3)
+                        lambda: cuda_ntt.ntt_fused_plain(*args), 2, 3)
+                    k2_bound = add_bound(k2_bound, ntt_pass_bound(
+                        count, k, lt, mul_in is not None,
+                        0 if mul_out is None else mul_out.numel() // F.LIMBS))
+                x = out
     dom = N.domain(F.FR, 17)
     x = _random_field(F.FR, 4 << 17, rng, dev)
     back = N.ntt_many(dom, N.ntt_many(dom, x, 4), 4, inverse=True)
     if not torch.equal(back, x):
         raise AssertionError("K2: ntt_many round trip at k=17 differs")
-    k2["shape"] = "k=17 count=4: (1024, 512) + (2048, 256) rows x lanes"
+    dom = N.domain(F.FR, 12)
+    x = _random_field(F.FR, 3 << 12, rng, dev)
+    shift = _random_field(F.FR, 1 << 12, rng, dev)
+    for inverse in (False, True):
+        got = N.ntt_many(dom, x, 3, inverse=inverse, shift_pows=shift)
+        want = N.ntt_many(dom, x.cpu(), 3, inverse=inverse, shift_pows=shift.cpu())
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError("K2: ntt_many at k=12 differs from the host's")
+    k2["shape"] = ("k=17 count=4, shift and mid table inside: (1024, 512) + "
+                   "(2048, 256) rows x lanes")
+    k2.update(k2_bound)
     rec["K2"] = k2
 
     # K3: 2^16 pairs of G1 points, with identity + P, P + P, P + (-P)
@@ -208,7 +272,9 @@ def phase_kernels(dev) -> dict:
         raise AssertionError("K3: P + (-P) is not the identity")
     rec["K3"] = {"errors": {"all": e}, "shape": "2^16 point pairs",
                  "ms": _time_ms(lambda: cuda_curve.add(p, q), 100),
-                 "plain_ms": _time_ms(lambda: cuda_curve.add_plain(p, q), 2, 3)}
+                 "plain_ms": _time_ms(lambda: cuda_curve.add_plain(p, q), 2, 3),
+                 **bound(9 * ELEM_BYTES * npts, ADD_IMADS * npts)}
+    rec.update(phase_k3_entries(dev, rng, p, q))
 
     # P1: (16, 2^17) planes of full-range words, k in {64, 512}, mask16
     # off and on; the four times summed
@@ -232,6 +298,8 @@ def phase_kernels(dev) -> dict:
             p1["cases"][name] = case
             p1["ms"] += case["ms"]
             p1["plain_ms"] += case["plain_ms"]
+    # four cases: three (16, n) planes moved and n * k multiplies each
+    p1.update(bound(4 * 3 * ELEM_BYTES * n, 2 * (64 + 512) * n))
     rec["P1"] = p1
 
     # P2a, P2b: (16, 2^20) Fr planes with the edges 0, 1, p-1, R mod p,
@@ -245,9 +313,9 @@ def phase_kernels(dev) -> dict:
     if err(cuda_field.mont_mul(F.FR, rows_a, rows_b).T, want):
         raise AssertionError("K1 on the P2 values differs")
     k1_ms = _time_ms(lambda: cuda_field.mont_mul(F.FR, rows_a, rows_b), 100)
-    for key, kern, plain in (
-            ("P2a", cuda_probe.mont_mul_planes16, cuda_probe.mont_mul_planes16_plain),
-            ("P2b", cuda_probe.mont_mul_planes13, cuda_probe.mont_mul_planes13_plain)):
+    for key, kern, plain, limbs in (
+            ("P2a", cuda_probe.mont_mul_planes16, cuda_probe.mont_mul_planes16_plain, 16),
+            ("P2b", cuda_probe.mont_mul_planes13, cuda_probe.mont_mul_planes13_plain, 20)):
         out = kern(F.FR, a, b)
         errors = {"plain": err(out, plain(F.FR, a, b)), "k1_plain": err(out, want)}
         if max(errors.values()):
@@ -255,24 +323,150 @@ def phase_kernels(dev) -> dict:
         rec[key] = {"errors": errors, "shape": "(16, 2^20) Fr planes",
                     "ms": _time_ms(lambda: kern(F.FR, a, b), 100),
                     "plain_ms": _time_ms(lambda: plain(F.FR, a, b), 2, 3),
-                    "k1_ms_same_values": k1_ms}
+                    "k1_ms_same_values": k1_ms,
+                    # a CIOS on L limbs is 2 L^2 + L multiply-adds: 16 or 20 limbs
+                    **bound(3 * ELEM_BYTES << 20, (2 * limbs * limbs + limbs) << 20)}
     top = cuda_probe.mont_mul_planes13_plain(F.FR, a, b, col_max=True)[1]
     if top >= 1 << 32:
         raise AssertionError(f"P2b: a 13-bit column reached {top} >= 2^32")
     rec["P2b"]["column_max"] = top
     for key, k20 in kernels_k20(dev, rng, p, q).items():
-        rec[key]["k20"] = k20
+        rec.setdefault(key, {})["k20"] = k20
     torch.cuda.synchronize()
     emit({"phase": "kernels", **rec})
+    return rec
+
+
+def same(name: str, got, want) -> int:
+    if not all(torch_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name} differs from its plain version")
+    return 0
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def phase_k3_entries(dev, rng, p, q) -> dict:
+    """K3's other entries on the 2^16 points ``p``, ``q`` (row 3 of p and
+    row 0 of q are the identity): the adder on strided halves and
+    broadcast operands, the multi-level fold (every level, with P + (-P),
+    P + P, O + O, P + O and O + P among its pairs; an odd group width),
+    the masked gathered add and the in-kernel doublings, each bit-exact
+    against its plain version, with times."""
+    import torch
+
+    from halo2_aes_tpu_torch.ops import cuda_curve
+    from halo2_aes_tpu_torch.ops import curve as CV
+    from halo2_aes_tpu_torch.ops import field as F
+    from halo2_aes_tpu_torch.ops.timing import time_ms as _time_ms
+
+    npts = p[0].shape[0]
+    groups, m = 8, npts // 8
+    half = m // 2
+    rec = {}
+
+    # strided halves of a (G, m) level read in place; a broadcast identity
+    # and a broadcast point as either operand
+    lvl = [t.reshape(groups, m, F.LIMBS) for t in p]
+    lo, hi = [t[:, :half] for t in lvl], [t[:, half:] for t in lvl]
+    before = cuda_curve.LAUNCHES
+    errors = {"halves": same("K3 add on strided halves", cuda_curve.add(lo, hi),
+                             cuda_curve.add_plain(lo, hi))}
+    if any(cuda_curve._strides(t) is None for t in (*lo, *hi)):
+        raise AssertionError("K3 add: a (G, m) half has no stride description")
+    ident = CV.identity(device=dev)
+    point = tuple(t[7] for t in q)
+    full = [t.expand(npts, F.LIMBS) for t in ident]
+    errors["identity_plus_q"] = same("K3 add O + Q", cuda_curve.add(ident, q),
+                                     cuda_curve.add_plain(full, q))
+    errors["p_plus_point"] = same(
+        "K3 add P + a point", cuda_curve.add(p, point),
+        cuda_curve.add_plain(p, [t.expand(npts, F.LIMBS) for t in point]))
+    if cuda_curve.LAUNCHES - before != 3:
+        raise AssertionError("K3 add: a strided or broadcast add is not one launch")
+    rec["K3_strided"] = {
+        "errors": errors, "shape": "halves of an (8, 2^13) level, read in place",
+        "ms": _time_ms(lambda: cuda_curve.add(lo, hi), 100),
+        "plain_ms": _time_ms(lambda: cuda_curve.add_plain(lo, hi), 2, 3),
+        **bound(9 * ELEM_BYTES * npts // 2, ADD_IMADS * npts // 2)}
+
+    # the fold: every level of (8, 2^13) and of the odd-width (3, 12)
+    lvl = tuple(t.clone() for t in p)
+    zero = torch.zeros(F.LIMBS, dtype=torch.int32, device=dev)
+    one = F.const(F.FQ, "one", dev)
+    lvl[0][half], lvl[2][half] = lvl[0][0], lvl[2][0]          # P + (-P)
+    lvl[1][half] = F.neg(F.FQ, lvl[1][0])
+    for t, v in zip(lvl, (zero, one, zero)):
+        t[half + 1] = t[1]                                      # P + P
+        t[2] = t[half + 2] = v                                  # O + O
+        t[half + 4] = v                                         # P + O
+    depth = m.bit_length() - 1
+    errors = {}
+    before = cuda_curve.LAUNCHES
+    got = cuda_curve.fold(lvl, groups, m, depth)
+    launches = cuda_curve.LAUNCHES - before
+    if launches != (depth + 1) // 2:
+        raise AssertionError(f"K3 fold: {launches} launches for {depth} levels")
+    for i, (a, b) in enumerate(zip(got, cuda_curve.fold_plain(lvl, groups, m, depth))):
+        errors[f"level{i + 1}"] = same(f"K3 fold level {i + 1}", a, b)
+    small = tuple(t[:36].contiguous() for t in lvl)
+    for i, (a, b) in enumerate(zip(cuda_curve.fold(small, 3, 12, 2),
+                                   cuda_curve.fold_plain(small, 3, 12, 2))):
+        errors[f"odd_level{i + 1}"] = same(f"K3 fold (3, 12) level {i + 1}", a, b)
+    rec["K3_fold"] = {
+        "errors": errors, "shape": "two levels of an (8, 2^13) level",
+        "ms": _time_ms(lambda: cuda_curve.fold(lvl, groups, m, 2), 100),
+        "plain_ms": _time_ms(lambda: cuda_curve.fold_plain(lvl, groups, m, 2), 2, 3),
+        **bound(3 * ELEM_BYTES * (npts + npts // 2 + npts // 4),
+                ADD_IMADS * 3 * npts // 4)}
+
+    # the masked gathered add: a Fenwick level
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    index = torch.randint(0, npts, (npts,), generator=gen, device=dev)
+    mask = torch.randint(0, 2, (npts,), generator=gen, device=dev).bool()
+    index[:2] = 3                    # the gathered identity, bit set and clear
+    mask[:2] = torch.tensor([True, False], device=dev)
+    errors = {
+        "acc": same("K3 masked add", cuda_curve.masked_add(q, p, index, mask),
+                    cuda_curve.masked_add_plain(q, p, index, mask)),
+        "identity_acc": same("K3 masked add from the identity",
+                             cuda_curve.masked_add(ident, p, index, mask),
+                             cuda_curve.masked_add_plain(ident, p, index, mask))}
+    rec["K3_masked"] = {
+        "errors": errors, "shape": "2^16 rows gathered from 2^16 nodes",
+        "ms": _time_ms(lambda: cuda_curve.masked_add(q, p, index, mask), 100),
+        "plain_ms": _time_ms(
+            lambda: cuda_curve.masked_add_plain(q, p, index, mask), 2, 3),
+        **bound((6 * npts + 3 * int(mask.sum())) * ELEM_BYTES + 9 * npts,
+                ADD_IMADS * npts)}
+
+    # doublings in the kernel: once (curve.double) and a window's 13
+    errors = {f"times{t}": same(f"K3 double_n({t})", cuda_curve.double_n(p, t),
+                                cuda_curve.double_n_plain(p, t))
+              for t in (0, 1, 13)}
+    if not (cuda_curve.double_n(p, 13)[2][3] == 0).all():
+        raise AssertionError("K3 double_n: the identity did not stay the identity")
+    rec["K3_double"] = {
+        "errors": errors, "shape": "2^16 points, 13 doublings each",
+        "ms": _time_ms(lambda: cuda_curve.double_n(p, 13), 20),
+        "plain_ms": _time_ms(lambda: cuda_curve.double_n_plain(p, 13), 1, 2),
+        **bound(6 * ELEM_BYTES * npts, 13 * DOUBLE_IMADS * npts)}
     return rec
 
 
 def kernels_k20(dev, rng, p, q, count: int = 45, reps: int = 8) -> dict:
     """K1, K2 and K3 at the shapes of the k=20 prove, each against its
     plain version (bit-exact) and timed (plain: one call after a warm-up):
-    K1 on a 45 x 2^20 stack against a broadcast 2^20 row (the coset
-    shift of the quotient's dynamic stack), K2 on both passes of a
-    45 x 2^20 stack, K3 on 2^19 point pairs (an MSM tree's first level);
+    K1 on a 45 x 2^20 stack against a broadcast 2^20 row, K2 on the fused
+    passes of a forward (coset shift on load) and an inverse transform of
+    a 45 x 2^20 stack (the quotient's dynamic stack), one ``ntt_many``
+    counted and profiled (two K2 launches, nothing else), K3 on 2^19
+    point pairs (an MSM tree's first level), two tree levels of an
+    (8, 2^16) level, a Fenwick level and a window group's doublings;
     ``p``, ``q`` are the 2^16 K3 pairs, rescaled to fresh
     representatives."""
     import torch
@@ -283,8 +477,7 @@ def kernels_k20(dev, rng, p, q, count: int = 45, reps: int = 8) -> dict:
     from halo2_aes_tpu_torch.ops.timing import time_ms as _time_ms
 
     def check(name, out, ref):
-        if not all(torch.equal(a, b) for a, b in zip(out, ref)):
-            raise AssertionError(f"{name} at the k=20 shape differs from plain")
+        same(f"{name} at the k=20 shape", out, ref)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(rng.integers(1 << 31)))
@@ -305,28 +498,97 @@ def kernels_k20(dev, rng, p, q, count: int = 45, reps: int = 8) -> dict:
     out["K1"] = {"shape": "(45, 2^20) x broadcast (2^20,)", "max_abs_err": 0,
                  "ms": _time_ms(lambda: cuda_field.mont_mul(F.FR, stack, row), 10),
                  "plain_ms": _time_ms(
-                     lambda: cuda_field.mont_mul_plain(F.FR, stack, row), 1, 1)}
-    del row
-    k2 = {"shape": "45 x 2^20: (46080, 1024) rows x lanes, twice",
+                     lambda: cuda_field.mont_mul_plain(F.FR, stack, row), 1, 1),
+                 **bound((2 * count + 1) * n * ELEM_BYTES,
+                         count * n * MONT_MUL_IMADS)}
+    # K2: both fused passes of a 45 x 2^20 stack, forward (shift on load)
+    # and inverse, each against its plain version; then the whole
+    # ntt_many, which must be two K2 launches and nothing else
+    k2 = {"shape": "45 x 2^20, shift and mid table inside: (46080, 1024) "
+                   "rows x lanes, twice; forward and inverse",
           "max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0}
-    x = stack.reshape(count * 1024, 1024, F.LIMBS)
+    k2_bound = None
+    flat = stack.reshape(count * n, F.LIMBS)
     for inverse in (False, True):
-        tw = F.limbs(N._stage_tables(F.FR, 10, inverse), dev)
-        check("K2", [cuda_ntt.ntt_pass(F.FR, x, tw)],
-              [cuda_ntt.ntt_pass_plain(F.FR, x, tw)])
-        k2["ms"] += _time_ms(lambda: cuda_ntt.ntt_pass(F.FR, x, tw), 10)
-        k2["plain_ms"] += _time_ms(lambda: cuda_ntt.ntt_pass_plain(F.FR, x, tw), 1, 1)
-    out["K2"] = k2                     # a forward and an inverse pass
-    del stack, x
+        tw = N._twiddles(F.FR, 10, inverse, dev)
+        x = flat
+        for transposed, mul_in, mul_out in (
+                (True, None if inverse else row, N._mid_table(F.FR, 20, 10, inverse, dev)),
+                (False, None, None)):
+            args = (F.FR, x, count, 20, 10, tw, transposed, mul_in, mul_out)
+            got = cuda_ntt.ntt_fused(*args)
+            check("K2", [got], [cuda_ntt.ntt_fused_plain(*args)])
+            k2["ms"] += _time_ms(lambda: cuda_ntt.ntt_fused(*args), 10)
+            k2["plain_ms"] += _time_ms(lambda: cuda_ntt.ntt_fused_plain(*args), 1, 1)
+            k2_bound = add_bound(k2_bound, ntt_pass_bound(
+                count, 20, 10, mul_in is not None, n if mul_out is not None else 0))
+            x = got
+        del x, got
+    k2.update(k2_bound)
+    out["K2"] = k2
+    dom = N.domain(F.FR, 20)
+    N.ntt_many(dom, flat, count, shift_pows=row)            # tables cached
+    before = (cuda_field.LAUNCHES, cuda_ntt.LAUNCHES)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        N.ntt_many(dom, flat, count, shift_pows=row)
+        N.ntt_many(dom, flat, count, inverse=True)
+        torch.cuda.synchronize()
+    launched = (cuda_field.LAUNCHES - before[0], cuda_ntt.LAUNCHES - before[1])
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    if launched != (0, 4) or any("ntt_fused_kernel" not in nm for nm in names):
+        raise AssertionError(f"ntt_many at k=20: K1, K2 launches {launched} for "
+                             f"two transforms, device kernels {names}")
+    out["ntt_many"] = {
+        "shape": "45 x 2^20 with a coset shift", "k1_launches": 0,
+        "k2_launches_per_transform": 2, "device_kernels": names,
+        "ms": _time_ms(lambda: N.ntt_many(dom, flat, count, shift_pows=row), 5, 3)}
+    del row, stack, flat
     lam = random_fr(reps * p[0].shape[0])           # < r < q: a valid Fq value
     lam[lam.eq(0).all(-1)] = F.const(F.FQ, "one", dev)
     pp = tuple(cuda_field.mont_mul_plain(F.FQ, c.repeat(reps, 1), lam) for c in p)
     qq = tuple(cuda_field.mont_mul_plain(F.FQ, c.repeat(reps, 1), lam.flip(0))
                for c in q)
+    npairs = pp[0].shape[0]
     check("K3", cuda_curve.add(pp, qq), cuda_curve.add_plain(pp, qq))
     out["K3"] = {"shape": "2^19 point pairs", "max_abs_err": 0,
                  "ms": _time_ms(lambda: cuda_curve.add(pp, qq), 20),
-                 "plain_ms": _time_ms(lambda: cuda_curve.add_plain(pp, qq), 1, 1)}
+                 "plain_ms": _time_ms(lambda: cuda_curve.add_plain(pp, qq), 1, 1),
+                 **bound(9 * ELEM_BYTES * npairs, ADD_IMADS * npairs)}
+    # two tree levels of an (8, 2^16) level in one launch
+    for a, b in zip(cuda_curve.fold(pp, 8, npairs // 8, 2),
+                    cuda_curve.fold_plain(pp, 8, npairs // 8, 2)):
+        check("K3 fold", a, b)
+    out["K3_fold"] = {
+        "shape": "two levels of an (8, 2^16) level", "max_abs_err": 0,
+        "ms": _time_ms(lambda: cuda_curve.fold(pp, 8, npairs // 8, 2), 20),
+        "plain_ms": _time_ms(lambda: cuda_curve.fold_plain(pp, 8, npairs // 8, 2), 1, 1),
+        **bound(3 * ELEM_BYTES * (npairs + npairs // 2 + npairs // 4),
+                ADD_IMADS * 3 * npairs // 4)}
+    # a Fenwick level: 8 windows x 2^13 buckets gathered from 2^19 nodes
+    rows = 8 << 13
+    index = torch.randint(0, npairs, (rows,), generator=gen, device=dev)
+    mask = torch.randint(0, 2, (rows,), generator=gen, device=dev).bool()
+    acc = tuple(t[:rows].contiguous() for t in qq)
+    check("K3 masked add", cuda_curve.masked_add(acc, pp, index, mask),
+          cuda_curve.masked_add_plain(acc, pp, index, mask))
+    out["K3_masked"] = {
+        "shape": "2^16 rows gathered from 2^19 nodes", "max_abs_err": 0,
+        "ms": _time_ms(lambda: cuda_curve.masked_add(acc, pp, index, mask), 20),
+        "plain_ms": _time_ms(
+            lambda: cuda_curve.masked_add_plain(acc, pp, index, mask), 1, 1),
+        **bound((6 * rows + 3 * int(mask.sum())) * ELEM_BYTES + 9 * rows,
+                ADD_IMADS * rows)}
+    # the roots of 8 windows doubled 13 times (the bucket weights' B - 1)
+    roots = tuple(t[:8].contiguous() for t in pp)
+    check("K3 double_n", cuda_curve.double_n(roots, 13),
+          cuda_curve.double_n_plain(roots, 13))
+    out["K3_double"] = {
+        "shape": "8 points, 13 doublings each", "max_abs_err": 0,
+        "ms": _time_ms(lambda: cuda_curve.double_n(roots, 13), 20),
+        "plain_ms": _time_ms(lambda: cuda_curve.double_n_plain(roots, 13), 1, 1),
+        **bound(6 * ELEM_BYTES * 8, 13 * DOUBLE_IMADS * 8)}
     torch.cuda.empty_cache()
     return out
 
@@ -366,7 +628,9 @@ def phase_golden(dev):
           "proof_bytes": out})
 
 
-PATH_KERNELS = ("K1", "K2", "K3")
+K3_ENTRIES = {"K3_add": "add", "K3_fold": "fold", "K3_masked": "masked_add",
+              "K3_double": "double_n"}
+PATH_KERNELS = ("K1", "K2", "K3", *K3_ENTRIES)
 PROBE_KERNELS = {"P1": "mul_probe", "P2a": "mont_mul_planes16",
                  "P2b": "mont_mul_planes13"}
 
@@ -376,6 +640,8 @@ def reset_counts():
 
     for mod in (cuda_field, cuda_ntt, cuda_curve):
         mod.LAUNCHES = 0
+    for entry in cuda_curve.ENTRY_LAUNCHES:
+        cuda_curve.ENTRY_LAUNCHES[entry] = 0
     cuda_probe.reset_counts()
 
 
@@ -384,6 +650,8 @@ def read_counts() -> dict:
 
     out = {"K1": cuda_field.LAUNCHES, "K2": cuda_ntt.LAUNCHES,
            "K3": cuda_curve.LAUNCHES}
+    out.update({key: cuda_curve.ENTRY_LAUNCHES[name]
+                for key, name in K3_ENTRIES.items()})
     out.update({key: cuda_probe.LAUNCHES[name]
                 for key, name in PROBE_KERNELS.items()})
     return out
@@ -697,6 +965,7 @@ def large_k20(dev) -> dict:
     values = timed("witness_s", lambda: witness.assemble_values(
         layout, witness.build_pool(key, pts)))
     torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)     # keys, tables, witness
     proof = timed("prove_s", PV.prove, pk, values)
     peak = torch.cuda.max_memory_allocated(dev)
     counts = read_counts()
@@ -708,6 +977,7 @@ def large_k20(dev) -> dict:
             "card_table_equals_host": True,
             "proof_bytes": len(proof), "verified": True,
             "flipped_byte_rejected": True, "peak_mem_bytes": peak,
+            "held_before_prove_bytes": held,
             "launches": {k: counts[k] for k in PATH_KERNELS}}
 
 
@@ -756,27 +1026,41 @@ def large_resume(dev) -> dict:
 
 
 def kernels_record(rec: dict, counts: dict) -> dict:
+    """One row per kernel and entry: the launches of the flagship path's
+    run, and this run's error, times and bound at the kernels phase's
+    shapes.  No PyTorch call computes a BN254 Montgomery product, an NTT
+    over Fr or a G1 addition, so ``library_ms`` is null throughout."""
     from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_ntt, cuda_probe
 
-    rows = [("K1", "mont_mul", cuda_field.SOURCE, cuda_field.REPLACES),
-            ("K2", "ntt_pass", cuda_ntt.SOURCE, cuda_ntt.REPLACES),
-            ("K3", "curve_add", cuda_curve.SOURCE, cuda_curve.REPLACES)]
-    rows += [(key, name, cuda_probe.SOURCE[name], cuda_probe.REPLACES[name])
+    k3 = (cuda_curve.SOURCE, cuda_curve.REPLACES)
+    rows = [("K1", "K1", "mont_mul", cuda_field.SOURCE, cuda_field.REPLACES),
+            ("K2", "K2", "ntt_fused", cuda_ntt.SOURCE, cuda_ntt.REPLACES),
+            ("K3", "K3_add", "curve_add", *k3),
+            ("K3_strided", "K3_add", "curve_add_strided", *k3),
+            ("K3_fold", "K3_fold", "curve_fold", *k3),
+            ("K3_masked", "K3_masked", "curve_add_masked", *k3),
+            ("K3_double", "K3_double", "curve_double_n", *k3)]
+    rows += [(key, key, name, cuda_probe.SOURCE[name], cuda_probe.REPLACES[name])
              for key, name in PROBE_KERNELS.items()]
     out = []
-    for key, name, source, replaces in rows:
+    for key, count_key, name, source, replaces in rows:
         r = rec[key]
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": counts[key],
+                    "replaces": replaces, "launches": counts[count_key],
                     "max_abs_err": max(r["errors"].values()),
-                    "ms": r["ms"], "plain_ms": r["plain_ms"]})
+                    "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": None})
     return {"kernels": out}
 
 
 def free() -> None:
     """Return the freed phase's cached device memory to the card."""
+    import gc
+
     import torch
 
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

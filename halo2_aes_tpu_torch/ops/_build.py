@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of ``csrc/`` (nvcc -> one .so, ctypes).
 
 The library is compiled at first use from the package's own sources
-into ``build/torch_kernels/<hash>/`` at the repository root, where the
-hash covers every ``csrc`` file, so an edited kernel is rebuilt and an
-unchanged one is loaded as is.  Each C entry point returns the
+into ``build/torch_kernels/<hash>/`` at the repository root (one nvcc
+per ``.cu``, all started together, then one link), where the hash covers
+every ``csrc`` file, so an edited kernel is rebuilt and an unchanged one
+is loaded as is.  Each C entry point returns the
 ``cudaGetLastError()`` of its launch; ``check`` raises on a non-zero
 code.  Nothing here runs at import time.
 """
@@ -24,8 +25,9 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                           "torch_kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = [*_ARCH, "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -34,10 +36,21 @@ _U = ctypes.c_uint32
 SIGNATURES = {
     # out, a, b, n, a_rows, b_rows, p[8] (host), n0inv, stream
     "mont_mul_launch": [_P, _P, _P, _I, _I, _I, _P, _U, _P],
-    # out, x, tw, rows, lt, p[8] (host), n0inv, stream
-    "ntt_pass_launch": [_P, _P, _P, _I, ctypes.c_int, _P, _U, _P],
-    # x3, y3, z3, x1, y1, z1, x2, y2, z2, n, p[8] (host), n0inv, stream
-    "curve_add_launch": [_P] * 9 + [_I, _P, _U, _P],
+    # out, x, tw, mul_in | NULL, mul_out | NULL, mul_out_rows, count, k, lt,
+    # transposed, p[8] (host), n0inv, stream
+    "ntt_fused_launch": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int, _P, _U, _P],
+    # x3, y3, z3, then per operand x, y, z, rows, inner, outer; n, p[8]
+    # (host), n0inv, stream
+    "curve_add_launch": [_P] * 3 + ([_P] * 3 + [_I] * 3) * 2 + [_I, _P, _U, _P],
+    # level-1 x, y, z, level-2 x, y, z, level-0 x, y, z, groups, m, p[8]
+    # (host), n0inv, stream
+    "curve_fold2_launch": [_P] * 9 + [_I, _I, _P, _U, _P],
+    # x3, y3, z3, x1, y1, z1, rows1, qx, qy, qz, index (int64), mask (u8),
+    # one (16 limbs), n, p[8] (host), n0inv, stream
+    "curve_add_masked_launch": [_P] * 6 + [_I] + [_P] * 6 + [_I, _P, _U, _P],
+    # x3, y3, z3, x, y, z, n, times, p[8] (host), n0inv, stream
+    "curve_double_launch": [_P] * 6 + [_I, ctypes.c_int, _P, _U, _P],
     # out, a, b, n, k, mask16, stream
     "mul_probe_launch": [_P, _P, _P, _I, ctypes.c_int, ctypes.c_int, _P],
     # out, a, b, n, p as 16 16-bit limbs (host), -p^-1 mod 2^16, stream
@@ -58,7 +71,7 @@ def source_hash() -> str:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -87,13 +100,26 @@ def build() -> tuple[str, float, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu],
-                          capture_output=True, text=True)
+    # one nvcc per source, all started together, then one link
+    obj_dir = tempfile.mkdtemp(dir=out_dir)
+    objs = [os.path.join(obj_dir, os.path.basename(p)[:-3] + ".o") for p in cu]
+    procs = [subprocess.Popen([_nvcc(), *COMPILE_FLAGS, "-I", CSRC, "-c", "-o", o, p],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for p, o in zip(cu, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(logs)
+    failed = [p for p, proc in zip(cu, procs) if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([_nvcc(), *LINK_FLAGS, "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["link"]
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    shutil.rmtree(obj_dir)
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing

@@ -1,22 +1,30 @@
-"""K2: one pass of the four-step NTT, CUDA kernel + plain PyTorch version.
+"""K2: one fused pass of the four-step NTT, CUDA kernel + plain versions.
 
 Replaces the Pallas kernel of ``halo2_aes_tpu/ops/pallas_ntt.py``
-(``_pass_fn`` :273, body ``_make_kernel`` :253 -> ``_stages`` :232): on a
-batch of rows of length T = 2^lt <= 2048, all lt radix-2 DIF stages,
-output bit-reversed along the row.  The code around it (the mid
-twiddle, the transposes, the final reorder) is ``ops/ntt.py``.
+(``_pass_fn`` :273, body ``_make_kernel`` :253 -> ``_stages`` :232): all lt
+radix-2 DIF stages over rows of length T = 2^lt <= 2048.  A transform of
+n = 2^k points is n / T interleaved rows per poly (row ``col`` holds the
+elements ``i * ncols + col``), and ``ntt_fused`` is the whole step around
+them: strided read from the flat stack, an optional multiply on load
+(the coset shift), the stages, an optional multiply in the epilogue (the
+mid twiddle, or the scalar n^-1), and a store that undoes the stages' bit
+reversal into the layout the next step reads.  ``ops/ntt.py`` composes
+two such launches for k > 11 and one below.
 
-Kernel (``csrc/ntt.cu``): one block per row, the row resident in shared
-memory as 8 x 32-bit words per element (64 KB at T = 2048, above the
-48 KB default, so the launch raises the dynamic shared-memory limit).
-Twiddles come from the reference's own host-built stage tables.
+Kernel (``csrc/ntt.cu``).  What bounds a pass on an H100: 128 B per
+element of int32-limb traffic against lt/2 butterflies of an add, a sub
+and a CIOS product; at lt = 10 the multiplier and the memory system are
+within 2x of each other, so any further walk over the stack (a
+transpose copy, a separate twiddle multiply, a gather) costs as much as
+the pass.  The kernel therefore does all of them itself: four walks per
+two-pass transform instead of fourteen.  Twiddles are one (T/2, 16)
+powers table kept in shared memory as 8 words an entry; a thread holds 8
+elements and runs three stages in registers between exchanges through
+shared memory; blocks are persistent and take W adjacent columns a tile.
 
-What bounds it on an H100: the row is read and written once (128 B per
-element in the int32 limb layout) while each stage costs one add, one
-sub and one CIOS multiply per butterfly pair in shared memory; at
-T = 512 (k = 17's first pass) the lt = 9 stages make it compute-bound
-on the multiplies.  A block per row keeps every stage on chip; fusing
-the mid-twiddle multiply and the reorder into the pass is later work.
+``ntt_pass_plain`` (the stages alone, bit-reversed output, from the
+reference's stage tables) is the CPU route of ``ops/ntt.ntt_flat``;
+``ntt_fused_plain`` is the plain PyTorch version of the kernel.
 """
 
 from __future__ import annotations
@@ -51,33 +59,95 @@ def ntt_pass_plain(spec: F.FieldSpec, x, tw):
     return x
 
 
-def ntt_pass(spec: F.FieldSpec, x, tw):
-    """All DIF stages along each row of x (rows, T, 16); tw is the
-    (lt*16, T) stage table on x's device.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (or raise)."""
-    if x.device.type == "cpu" and tw.device.type == "cpu":
-        return ntt_pass_plain(spec, x, tw)
-    if x.device.type != "cuda" or tw.device != x.device:
-        raise ValueError(f"ntt_pass: tensors on {x.device} and {tw.device}")
-    if x.dtype != torch.int32 or tw.dtype != torch.int32:
-        raise TypeError("ntt_pass: limb tensors must be int32")
-    if x.dim() != 3 or x.shape[2] != F.LIMBS:
-        raise ValueError(f"ntt_pass: x must be (rows, T, 16), got {x.shape}")
-    rows, T, _ = x.shape
-    lt = T.bit_length() - 1
-    if T != 1 << lt or not 1 <= lt <= MAX_LT:
-        raise ValueError(f"ntt_pass: row length {T} not a power of two <= 2048")
-    if tw.shape != (lt * F.LIMBS, T) or not tw.is_contiguous():
-        raise ValueError(f"ntt_pass: stage table {tw.shape} for T={T}")
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    if rows == 0:
-        return out
+def _brev_index(lt: int, device) -> torch.Tensor:
+    idx = torch.arange(1 << lt, dtype=torch.int64, device=device)
+    rev = torch.zeros_like(idx)
+    for b in range(lt):
+        rev |= ((idx >> b) & 1) << (lt - 1 - b)
+    return rev
+
+
+def ntt_fused_plain(spec: F.FieldSpec, x, count: int, k: int, lt: int, tw,
+                    transposed: bool, mul_in=None, mul_out=None):
+    """Plain PyTorch version of ``ntt_fused`` (same arguments), any device."""
+    n, T = 1 << k, 1 << lt
+    ncols = n >> lt
+
+    def times(stack, table):      # poly by poly: int64 temporaries of one
+        return torch.stack([CF.mont_mul_plain(spec, poly, table) for poly in stack])
+
+    x = x.reshape(count, n, F.LIMBS)
+    if mul_in is not None:
+        x = times(x, mul_in)
+    rows = x.reshape(count, T, ncols, F.LIMBS).transpose(1, 2).reshape(
+        count * ncols, T, F.LIMBS)
+    for s in range(lt):
+        h = T >> (s + 1)
+        xv = rows.reshape(-1, T // (2 * h), 2, h, F.LIMBS)
+        u, v = xv[:, :, 0], xv[:, :, 1]
+        tws = tw[torch.arange(h, device=tw.device) << s]
+        a = F.add(spec, u, v)
+        r = CF.mont_mul_plain(spec, F.sub(spec, u, v), tws)
+        rows = torch.stack([a, r], dim=2).reshape(-1, T, F.LIMBS)
+    rows = rows.reshape(count, n, F.LIMBS)          # (pc, col, position p)
+    if mul_out is not None:
+        rows = times(rows, mul_out.reshape(-1, F.LIMBS))
+    rows = rows.reshape(count, ncols, T, F.LIMBS).index_select(
+        2, _brev_index(lt, x.device))               # (pc, col, frequency j)
+    if not transposed:
+        rows = rows.transpose(1, 2)
+    return rows.reshape(count * n, F.LIMBS)
+
+
+def ntt_fused(spec: F.FieldSpec, x, count: int, k: int, lt: int, tw,
+              transposed: bool, mul_in=None, mul_out=None, in_place: bool = False):
+    """One fused pass over a FLAT (count * 2^k, 16) stack.
+
+    Poly pc's row ``col`` (of ncols = 2^(k - lt)) is the elements
+    pc*n + i*ncols + col, i < T = 2^lt.  Each element is multiplied by
+    ``mul_in[i*ncols + col]`` (an (n, 16) table) if given; every row runs
+    its lt DIF stages with twiddles ``tw`` ((T/2, 16): the powers of the
+    primitive T-th root); position p of row col is multiplied by
+    ``mul_out[col*T + p]`` (an (n, 16) table in that order, or one
+    (16,) element for all) if given; and its frequency j = brev(p) is
+    stored at pc*n + col*T + j (``transposed``) or at pc*n + j*ncols + col.
+    ``in_place`` (not with ``transposed``) lets a CUDA launch overwrite
+    ``x`` and return it: a tile is stored where it was read.
+    CPU tensors take the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    n, T = 1 << k, 1 << lt
+    tensors = [t for t in (x, tw, mul_in, mul_out) if t is not None]
+    if not 1 <= lt <= MAX_LT or lt > k or count < 1:
+        raise ValueError(f"ntt_fused: bad sizes count={count} k={k} lt={lt}")
+    if in_place and transposed:
+        raise ValueError("ntt_fused: a transposed pass cannot run in place")
+    if x.shape != (count * n, F.LIMBS):
+        raise ValueError(f"ntt_fused: x must be ({count * n}, 16), got {tuple(x.shape)}")
+    if tw.shape != (T // 2, F.LIMBS):
+        raise ValueError(f"ntt_fused: twiddles {tuple(tw.shape)} for T={T}")
+    if mul_in is not None and mul_in.shape != (n, F.LIMBS):
+        raise ValueError(f"ntt_fused: mul_in {tuple(mul_in.shape)} for n={n}")
+    if mul_out is not None and mul_out.shape not in ((n, F.LIMBS), (F.LIMBS,)):
+        raise ValueError(f"ntt_fused: mul_out {tuple(mul_out.shape)} for n={n}")
+    if all(t.device.type == "cpu" for t in tensors):
+        return ntt_fused_plain(spec, x, count, k, lt, tw, transposed, mul_in, mul_out)
+    dev = x.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("ntt_fused: tensors on mixed or non-CUDA devices")
+    if any(t.dtype != torch.int32 for t in tensors):
+        raise TypeError("ntt_fused: limb tensors must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ntt_fused: tensors must be contiguous")
+    out = x if in_place else torch.empty_like(x)
     words, n0 = _build.modulus_args(spec.modulus)
     global LAUNCHES
     LAUNCHES += 1
-    code = _build.library().ntt_pass_launch(
-        out.data_ptr(), x.data_ptr(), tw.data_ptr(), rows, lt,
-        ctypes.addressof(words), n0, _build.stream_of(out))
-    _build.check(code, "ntt_pass")
+    code = _build.library().ntt_fused_launch(
+        out.data_ptr(), x.data_ptr(), tw.data_ptr(),
+        None if mul_in is None else mul_in.data_ptr(),
+        None if mul_out is None else mul_out.data_ptr(),
+        0 if mul_out is None else mul_out.numel() // F.LIMBS,
+        count, k, lt, int(transposed), ctypes.addressof(words), n0,
+        _build.stream_of(out))
+    _build.check(code, "ntt_fused")
     return out

@@ -2,9 +2,10 @@
 
 Points are homogeneous projective triples (X, Y, Z), each ``(..., 16)``
 int32 Montgomery limbs; the identity has Z == 0.  ``add`` is the
-Renes-Costello-Batina complete adder (``ops/cuda_curve.py``: the K3
-kernel on CUDA tensors), ``double`` the RCB complete doubling built
-from field ops.  The ``py_*`` functions are the python-bigint host
+Renes-Costello-Batina complete adder and ``double`` / ``double_n`` the
+RCB complete doubling (``ops/cuda_curve.py``: the K3 kernels on CUDA
+tensors, their plain versions on CPU tensors).  The ``py_*`` functions
+are the python-bigint host
 oracle the verifier and SRS setup use.
 
 Curve: y^2 z = x^3 + 3 z^3 over Fq, prime order r (= Fr modulus).
@@ -40,32 +41,16 @@ def neg(p):
 
 
 add = cuda_curve.add
-
-
-def _bmul(pairs):
-    a = torch.stack([x for x, _ in pairs])
-    b = torch.stack([y for _, y in pairs])
-    out = F.mont_mul(FQ, a, b)
-    return [out[i] for i in range(len(pairs))]
+fold = cuda_curve.fold
+masked_add = cuda_curve.masked_add
 
 
 def double(p):
     """RCB complete doubling (alg. 9, a=0, b3=9).  Identity-safe."""
-    X, Y, Z = p
+    return cuda_curve.double_n(p, 1)
 
-    def fadd(a, b):
-        return F.add(FQ, a, b)
 
-    t0, t1, t2, t3 = _bmul([(Y, Y), (Y, Z), (Z, Z), (X, Y)])
-    z8 = fadd(t0, t0)
-    z8 = fadd(z8, z8)
-    z8 = fadd(z8, z8)
-    t2b = cuda_curve._mul_b3(t2)
-    y3s = fadd(t0, t2b)
-    t2b3 = fadd(fadd(t2b, t2b), t2b)
-    t0m = F.sub(FQ, t0, t2b3)
-    X3a, Z3, Y3a, X3b = _bmul([(t2b, z8), (t1, z8), (t0m, y3s), (t0m, t3)])
-    return (fadd(X3b, X3b), fadd(X3a, Y3a), Z3)
+double_n = cuda_curve.double_n
 
 
 def to_affine_host(p) -> list:

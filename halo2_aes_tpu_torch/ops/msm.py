@@ -2,9 +2,10 @@
 
 The reference's dyadic-tree + Fenwick algorithm, kept so its pieces can
 be held against the reference: per window, sort (digit, index) keys,
-fold the digit-sorted points up a binary tree of complete adds (one
-batched ``curve.add`` per level over all windows), assemble every
-bucket prefix C_b from <= log2(n)+1 tree nodes, and telescope
+fold the digit-sorted points up a binary tree of complete adds
+(``curve.fold``: two levels of all windows a K3 launch), assemble every
+bucket prefix C_b from <= log2(n)+1 tree nodes (``curve.masked_add``: one
+launch a level), and telescope
 sum_b b * D_b = (B-1) * C_{B-1} - sum_{b<B-1} C_b.  With the
 2^(cw)-shifted window tables of ``build_tables`` the windows need no
 Horner doubling chain.  Affine results are unique, so a bucket
@@ -70,18 +71,21 @@ def digit_matrix(scalars, c: int):
 
 
 def _tree_add(pts):
-    """Fold a stacked point triple (m, ..., 16) down axis 0."""
-    x, y, z = pts
-    m = x.shape[0]
+    """Fold a stacked point triple (m, ..., 16) down axis 0: node i plus
+    node i + m // 2, an odd last node carried to the next level."""
+    m = pts[0].shape[0]
+    tail = pts[0].shape[1:]
+    cur = tuple(t.reshape(m, -1, F.LIMBS).contiguous() for t in pts)
+    width = cur[0].shape[1]
     while m > 1:
-        half = m // 2
-        s = CV.add((x[:half], y[:half], z[:half]),
-                   (x[half:2 * half], y[half:2 * half], z[half:2 * half]))
-        x = torch.cat([s[0], x[2 * half:]])
-        y = torch.cat([s[1], y[2 * half:]])
-        z = torch.cat([s[2], z[2 * half:]])
-        m = x.shape[0]
-    return (x[0], y[0], z[0])
+        even = m - (m & 1)
+        depth = 1 if m & 1 else (m & -m).bit_length() - 1
+        s = CV.fold(tuple(t[:even].reshape(even * width, F.LIMBS) for t in cur),
+                    1, even * width, depth)[-1]
+        s = tuple(t.reshape(even >> depth, width, F.LIMBS) for t in s)
+        cur = tuple(torch.cat([a, t[even:]]) for a, t in zip(s, cur)) if m & 1 else s
+        m = cur[0].shape[0]
+    return tuple(t.reshape(tail) for t in cur)
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,12 +101,6 @@ def _bitrev_np(lg: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _bitrev(lg: int, device) -> torch.Tensor:
     return torch.from_numpy(_bitrev_np(lg)).to(device)
-
-
-def _double_n(p, times: int):
-    for _ in range(times):
-        p = CV.double(p)
-    return p
 
 
 def _window_sums(px, py, digs, c: int, n_real: int, tables=None, tbase=None):
@@ -136,47 +134,30 @@ def _window_sums(px, py, digs, c: int, n_real: int, tables=None, tbase=None):
     sy = torch.where(live, sxy[:, F.LIMBS:], one)
     sz = torch.where(live, one, 0)
 
-    def fold_halves(cur, m):
-        half = m // 2
-        lo = tuple(t.reshape(G, m, F.LIMBS)[:, :half].reshape(G * half, F.LIMBS)
-                   for t in cur)
-        hi = tuple(t.reshape(G, m, F.LIMBS)[:, half:].reshape(G * half, F.LIMBS)
-                   for t in cur)
-        return CV.add(lo, hi)
-
     # up-sweep: level l holds G * (n_pad >> l) nodes in bit-reversed order
-    levels = [(sx, sy, sz)]
-    cur = levels[0]
-    m = n_pad
-    while m > 1:
-        cur = fold_halves(cur, m)
-        m //= 2
-        levels.append(cur)
-    root = cur
+    levels = [(sx, sy, sz)] + CV.fold((sx, sy, sz), G, n_pad, lg)
+    root = levels[-1]
 
-    # Fenwick extraction of C_b = sum of the first m_b sorted points
+    # Fenwick extraction of C_b = sum of the first m_b sorted points: bucket
+    # b takes node ((m_b >> (l+1)) << 1) of level l where bit l of m_b is set
     bvals = torch.arange(buckets, dtype=torch.int64, device=dev)
     mcounts = torch.searchsorted(ds, bvals.expand(G, buckets).contiguous(),
-                                 right=True)
-    gofs = torch.arange(G, dtype=torch.int64, device=dev)[:, None]
-    acc = tuple(t.expand(G * buckets, F.LIMBS) for t in ident)
-    for lvl in range(len(levels)):
-        m_lvl = n_pad >> lvl
-        bit = (((mcounts >> lvl) & 1) == 1).reshape(-1)
-        idx = ((mcounts >> (lvl + 1)) << 1).clamp(0, m_lvl - 1)
-        idx = _bitrev(lg - lvl, dev)[idx]
-        flat = (gofs * m_lvl + idx).reshape(-1)
-        node = tuple(F.select(bit, t[flat], i) for t, i in zip(levels[lvl], ident))
-        acc = CV.add(acc, node)
+                                 right=True).reshape(1, G * buckets)
+    lv = torch.arange(lg + 1, dtype=torch.int64, device=dev)[:, None]
+    bits = ((mcounts >> lv) & 1) == 1
+    idx = torch.minimum(((mcounts >> (lv + 1)) << 1), (n_pad >> lv) - 1)
+    idx = _bitrev(lg, dev)[idx] >> lv          # bit reversal on lg - l bits
+    gofs = torch.arange(G, dtype=torch.int64, device=dev).repeat_interleave(buckets)
+    flat = gofs[None, :] * (n_pad >> lv) + idx
+    acc = ident
+    for lvl in range(lg + 1):
+        acc = CV.masked_add(acc, levels[lvl], flat[lvl], bits[lvl])
 
     # sum_b b*D_b = (B-1)*C_{B-1} - sum_{b<B-1} C_b ; C_{B-1} = root
     last = (torch.arange(G * buckets, device=dev) % buckets) == buckets - 1
-    cur = tuple(F.select(last, i, a) for a, i in zip(acc, ident))
-    m = buckets
-    while m > 1:
-        cur = fold_halves(cur, m)
-        m //= 2
-    scaled = CV.add(_double_n(root, c), CV.neg(root))
+    cur = tuple(F.select(last, i, a).contiguous() for a, i in zip(acc, ident))
+    cur = CV.fold(cur, G, buckets, c)[-1]
+    scaled = CV.add(CV.double_n(root, c), CV.neg(root))
     return CV.add(scaled, CV.neg(cur))
 
 
@@ -193,7 +174,7 @@ def build_tables(points, c: int):
     xs, ys, zs = [], [], []
     for w in range(W):
         if w:
-            cur = _double_n(cur, c)
+            cur = CV.double_n(cur, c)
         xs.append(cur[0])
         ys.append(cur[1])
         zs.append(cur[2])
@@ -241,7 +222,7 @@ def msm(points, scalars, c: int | None = None, tables=None):
     acc = CV.identity(device=px.device)
     for i in range(W):
         w = W - 1 - i
-        acc = CV.add(_double_n(acc, c), (sx[w], sy[w], sz[w]))
+        acc = CV.add(CV.double_n(acc, c), (sx[w], sy[w], sz[w]))
     return acc
 
 

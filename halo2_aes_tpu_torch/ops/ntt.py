@@ -4,17 +4,23 @@ Every batched transform runs the four-step decomposition of the
 reference's ``pallas_ntt.ntt_flat`` (pallas_ntt.py:350), on every
 device and at every k:
 
-  k <= 11: one pass of length n per poly (``cuda_ntt.ntt_pass``), then
-           the bit-reversal gather (and n^-1 for the inverse);
+  k <= 11: one pass of length n per poly, output un-bit-reversed (and
+           times n^-1 for the inverse);
   k  > 11: n = n1 * n2 with k1 = ceil(k/2): pass of length n1 over the
            (i2 row, i1 lane) transpose, the mid twiddle w^(i2*k1)
            (n^-1 folded in for the inverse), pass of length n2 over the
-           transpose back, one gather to natural order.
+           transpose back, natural order out.
 
-On a CUDA tensor the passes are the K2 kernel and the mid multiply is
-K1; on a CPU tensor both are their plain versions.  The NTT is an exact
-function of its input, so the result equals the reference's
-``ntt``/``ntt_many`` bit for bit whichever path computed it.
+On a CUDA tensor that is K2 (``cuda_ntt.ntt_fused``) and nothing else:
+one launch for k <= 11, two above.  A transform is bound by its walks
+over device memory (128 B an element and walk), so the coset shift, both
+transposes, the mid twiddle, the output reorder and n^-1 all happen
+inside the two launches: four walks of the stack, where separate
+multiplies, transpose copies and a gather made fourteen.  On a CPU
+tensor the same steps are plain PyTorch ops around
+``cuda_ntt.ntt_pass_plain``.  The NTT is an exact function of its input,
+so the result equals the reference's ``ntt``/``ntt_many`` bit for bit
+whichever path computed it.
 """
 
 from __future__ import annotations
@@ -135,15 +141,50 @@ def domain(spec: F.FieldSpec, k: int) -> Domain:
 
 def _pass(spec, x, lt: int, inverse: bool):
     tw = _dev_limbs(_stage_tables, (spec, lt, inverse), x.device)
-    return cuda_ntt.ntt_pass(spec, x, tw)
+    return cuda_ntt.ntt_pass_plain(spec, x, tw)
 
 
-def ntt_flat(dom: Domain, flat, count: int, inverse: bool = False):
+def _twiddles(spec, lt: int, inverse: bool, device):
+    """(T/2, 16) powers of the primitive 2^lt-th root: K2's twiddles."""
+    return _powers_table(spec, _root(spec, lt, inverse), max(1, 1 << (lt - 1)),
+                         device)
+
+
+def _ntt_flat_cuda(dom: Domain, flat, count: int, inverse: bool, shift_pows):
+    """The four-step transform as fused K2 launches: one for k <= 11 (the
+    bit reversal and n^-1 inside it), two above (shift on load and mid
+    twiddle in the first, natural-order store in the second)."""
+    spec, k, dev = dom.spec, dom.k, flat.device
+    if k <= cuda_ntt.MAX_LT:
+        n_inv = F.encode(spec, dom.n_inv, dev) if inverse else None
+        return cuda_ntt.ntt_fused(spec, flat, count, k, k,
+                                  _twiddles(spec, k, inverse, dev), False,
+                                  mul_in=shift_pows, mul_out=n_inv)
+    k1 = (k + 1) // 2
+    x = cuda_ntt.ntt_fused(spec, flat, count, k, k1,
+                           _twiddles(spec, k1, inverse, dev), True,
+                           mul_in=shift_pows,
+                           mul_out=_mid_table(spec, k, k1, inverse, dev))
+    return cuda_ntt.ntt_fused(spec, x, count, k, k - k1,
+                              _twiddles(spec, k - k1, inverse, dev), False,
+                              in_place=True)
+
+
+def ntt_flat(dom: Domain, flat, count: int, inverse: bool = False,
+             shift_pows=None):
     """``count`` size-n transforms over a FLAT (count*n, 16) tensor
-    (poly i at rows [i*n, (i+1)*n)), natural order in and out."""
+    (poly i at rows [i*n, (i+1)*n)), natural order in and out;
+    ``shift_pows`` (n, 16) first multiplies every poly.  A CUDA tensor
+    goes through K2 alone; a CPU tensor through the plain composition
+    (multiply, transposes, plain passes, gather)."""
     spec, k, n = dom.spec, dom.k, dom.n
     assert flat.shape == (count * n, LIMBS), flat.shape
     dev = flat.device
+    if dev.type != "cpu":
+        return _ntt_flat_cuda(dom, flat.contiguous(), count, inverse, shift_pows)
+    if shift_pows is not None:
+        flat = F.mont_mul(spec, flat.reshape(count, n, LIMBS),
+                          shift_pows).reshape(count * n, LIMBS)
     if k <= cuda_ntt.MAX_LT:
         x = _pass(spec, flat.reshape(count, n, LIMBS), k, inverse)
         x = x.index_select(1, _dev_index(_bitrev, (k,), dev))
@@ -176,15 +217,12 @@ def ntt_many(dom: Domain, flat, count: int, inverse: bool = False,
     """``count`` batched size-n transforms over a FLAT (count*n, 16)
     tensor; ``shift_pows`` (n, 16) first multiplies every poly onto a
     coset (read in place for all polys, never tiled)."""
-    if shift_pows is not None:
-        flat = F.mont_mul(dom.spec, flat.reshape(count, dom.n, LIMBS),
-                          shift_pows).reshape(count * dom.n, LIMBS)
-    return ntt_flat(dom, flat, count, inverse)
+    return ntt_flat(dom, flat, count, inverse, shift_pows)
 
 
 def coset_ntt(dom: Domain, coeffs, shift_powers):
     """Evaluate coeffs on the coset {shift * w^i}: distribute then NTT."""
-    return ntt(dom, F.mont_mul(dom.spec, coeffs, shift_powers))
+    return ntt_flat(dom, coeffs, 1, shift_pows=shift_powers)
 
 
 def coset_intt(dom: Domain, evals, shift_inv_powers):

@@ -55,33 +55,6 @@ def timed_prove(PV, pk, values, dev, **opts):
     return s, {k: v - before[k] for k, v in launches().items()}
 
 
-def profiled_prove(PV, pk, values, dev) -> dict:
-    """One prove under torch.profiler: device time by kernel name."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        PV.prove(pk, values)
-        torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        rows.append((us, e.count, e.key))
-    rows.sort(reverse=True)
-    device_s = sum(r[0] for r in rows) / 1e6
-    return {"profiled_wall_s": wall, "device_s": device_s,
-            "device_over_profiled_wall": device_s / wall,
-            "device_launches": sum(r[1] for r in rows),
-            "top": [{"name": name[:80], "device_ms": us / 1e3, "launches": n}
-                    for us, n, name in rows[:25]]}
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -107,7 +80,7 @@ def main() -> int:
     from halo2_aes_tpu_torch.backend import srs as SRS
     from halo2_aes_tpu_torch.circuit import witness
     from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
-    from torch_phases import phase_prove       # beside this script
+    from torch_phases import phase_prove, profiled_prove  # beside this script
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -137,7 +110,7 @@ def main() -> int:
         out["phases_s"], out["phase_peak_bytes"] = phase_prove(
             lambda: PV.prove(pk, values), dev)
     if args.profile:
-        out["profile"] = profiled_prove(PV, pk, values, dev)
+        out["profile"] = profiled_prove(lambda: PV.prove(pk, values), dev)
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

@@ -1,10 +1,12 @@
-"""Phase-by-phase timing of one SHPLONK prove of the PyTorch port.
+"""Phase-by-phase timing and the profile of one SHPLONK prove of the
+PyTorch port.
 
 Imported by ``profile_torch_flagship.py`` and ``torch_prove_steady.py``
-(``--phases``); not a script of its own.  The device is synchronised at
-every Fiat-Shamir challenge, so each interval between two challenges is
-the device time and host time of the prover phase that ends there.
-Imports no JAX.
+(``--phases``, ``--profile``); not a script of its own.  ``phase_prove``
+synchronises the device at every Fiat-Shamir challenge, so each interval
+between two challenges is the device time and host time of the prover
+phase that ends there; ``profiled_prove`` runs one prove under
+``torch.profiler``.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -59,3 +61,31 @@ def phase_prove(prove, device) -> tuple[dict, dict]:
         seconds[current] = seconds.get(current, 0.0) + t - t_prev
         peaks[current] = max(peaks.get(current, 0), peak)
     return seconds, peaks
+
+
+def profiled_prove(prove, device) -> dict:
+    """``prove()`` under torch.profiler: device time and launches by kernel
+    name, all CUDA kernels counted, and device time over the profiled wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prove()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    device_s = sum(r[0] for r in rows) / 1e6
+    return {"profiled_wall_s": wall, "device_s": device_s,
+            "device_over_profiled_wall": device_s / wall,
+            "device_launches": sum(r[1] for r in rows),
+            "top": [{"name": name[:80], "device_ms": us / 1e3, "launches": n}
+                    for us, n, name in rows[:25]]}

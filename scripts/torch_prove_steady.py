@@ -3,7 +3,7 @@
 
   python scripts/torch_prove_steady.py --device cuda [k] [blocks] [sets]
       [--tagged] [--lookup-sort field|packed] [--tables] [--phases]
-      [--static-compare N] [--out FILE]
+      [--static-compare N] [--proves N] [--profile] [--tree DIR] [--out FILE]
 
 The counterpart of ``scripts/prove_steady.py`` (defaults: k=17, 4
 blocks, one column set): compiles the AES-128 circuit, sets up the SRS
@@ -19,6 +19,11 @@ at every Fiat-Shamir challenge, with each phase's peak device memory.
 ``--static-compare N`` then proves 2N more times in turns, with the
 static sub-coset evaluations cached (by this script, for all R
 sub-cosets) and recomputed (what the large path does).
+``--proves N`` times N more warm proves and reports their median;
+``--profile`` runs one more under ``torch.profiler`` (launches and device
+time of every CUDA kernel).  ``--tree`` imports ``halo2_aes_tpu_torch``
+from another checkout (default: this one), so two trees can be timed on
+one card in one run.
 Prints one JSON line; ``--out`` also writes it to a file.  Imports no
 JAX.
 """
@@ -31,7 +36,7 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def tables(k: int, ext_k: int, d: int, n_perm: int, dev) -> dict:
@@ -88,8 +93,14 @@ def main() -> int:
     ap.add_argument("--tables", action="store_true")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--static-compare", type=int, default=0, metavar="N")
+    ap.add_argument("--proves", type=int, default=0, metavar="N",
+                    help="N more warm proves, reported with their median")
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--tree", default=REPO,
+                    help="checkout to import halo2_aes_tpu_torch from")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.tree))
 
     import numpy as np
     import torch
@@ -104,7 +115,8 @@ def main() -> int:
 
     dev = torch.device(args.device)
     cuda = dev.type == "cuda"
-    out = {"k": args.k, "blocks": args.blocks, "sets": args.sets,
+    out = {"tree": os.path.relpath(os.path.abspath(args.tree), REPO),
+           "k": args.k, "blocks": args.blocks, "sets": args.sets,
            "tagged": args.tagged, "lookup_sort": args.lookup_sort,
            "device": torch.cuda.get_device_name(dev) if cuda else str(dev)}
     if cuda:
@@ -145,6 +157,7 @@ def main() -> int:
     def prove(seed, **kw):
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev) if cuda else None
         before = launches()
         proof, s = timed(PV.prove, pk, values, seed=seed,
                          lookup_sort=args.lookup_sort, **kw)
@@ -152,16 +165,30 @@ def main() -> int:
                "launches": {k_: v - before[k_] for k_, v in launches().items()}}
         if cuda:
             rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            rec["held_before_bytes"] = held
         return proof, rec
 
     for seed, label in ((1, "cold"), (2, "warm"), (3, "steady")):
         proof, out[label] = prove(seed)
         print(f"prove {label}: {out[label]['s']:.2f} s", flush=True)
+    if args.proves:
+        more = [prove(10 + i)[1] for i in range(args.proves)]
+        out["more"] = {"s": [r["s"] for r in more],
+                       "median_s": float(np.median([r["s"] for r in more])),
+                       "launches": more[-1]["launches"],
+                       "peak_bytes": max(r.get("peak_bytes", 0) for r in more)}
     out["proof_bytes"] = len(proof)
     _, out["verify_s"] = timed(verify, pk.vk, proof)
     out["verified"] = True
     if args.phases:
         out["phases_s"], out["phase_peak_bytes"] = _phases(PV, pk, values, dev, args)
+    if args.profile:
+        from torch_phases import profiled_prove    # beside this script
+
+        if not cuda:
+            raise SystemExit("--profile needs a CUDA device")
+        out["profile"] = profiled_prove(
+            lambda: PV.prove(pk, values, seed=6, lookup_sort=args.lookup_sort), dev)
     if args.static_compare:
         out["static_compare"] = _static_compare(ph, prove, args.static_compare)
     line = json.dumps(out)

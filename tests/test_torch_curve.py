@@ -89,6 +89,114 @@ def test_plain_add_is_the_cpu_route(points):
     assert _eq(cuda_curve.add(tp, tp), cuda_curve.add_plain(tp, tp))
 
 
+def test_double_n_against_repeated_reference_double(points):
+    tp, jp = _proj(points, "port"), _proj(points, "ref")
+    tp, jp = _set_identity(tp, 0), _set_identity(jp, 0)
+    exp = tuple(map(jnp.asarray, jp))
+    for times in (1, 2, 5):
+        exp_t = exp
+        for _ in range(times):
+            exp_t = JC.double(exp_t)
+        assert _eq(cuda_curve.double_n_plain(tp, times), exp_t)
+        assert _eq(C.double_n(tp, times), exp_t)
+    assert _eq(C.double_n(tp, 0), exp)
+    assert C.to_affine_host(C.double_n(tp, 3))[0] is None
+
+
+def _level(points, groups, m):
+    """A (groups*m)-row level from the 16 points, rows 1 and m+2 the
+    identity, row 3 = -row 3+m/2... (every identity case meets a fold)."""
+    reps = -(-groups * m // len(points))
+    lvl = tuple(t.repeat(reps, 1)[:groups * m].clone()
+                for t in _proj(points, "port"))
+    lvl = _set_identity(lvl, 1)
+    lvl = _set_identity(lvl, m + 2 if groups > 1 else m - 1)
+    half = m // 2
+    lvl[0][half], lvl[2][half] = lvl[0][0], lvl[2][0]         # P + (-P)
+    lvl[1][half] = F.neg(F.FQ, lvl[1][0])
+    for t in lvl:
+        t[half + 2] = t[2]                                    # P + P
+    lvl = _set_identity(_set_identity(lvl, 3), half + 3)       # O + O
+    return lvl
+
+
+@pytest.mark.parametrize("groups,m,depth", [(1, 8, 3), (3, 8, 2), (2, 12, 2),
+                                            (2, 6, 1)])
+def test_fold_equals_per_level_fold(points, groups, m, depth):
+    """The multi-level fold equals one complete add per level (node i
+    with node i + m/2 of each group) at every level it returns."""
+    cur = _level(points, groups, m)
+    got = C.fold(cur, groups, m, depth)
+    assert len(got) == depth
+    for lvl in got:
+        half = m // 2
+        v = [t.reshape(groups, m, F.LIMBS) for t in cur]
+        exp = C.add([t[:, :half] for t in v], [t[:, half:] for t in v])
+        assert all(torch.equal(a, b.reshape(-1, F.LIMBS)) for a, b in zip(lvl, exp))
+        cur, m = lvl, half
+    with pytest.raises(ValueError):
+        C.fold(cur, groups, m, 5)
+
+
+@pytest.mark.parametrize("m", [2, 3, 5, 6, 11, 12, 22])
+def test_tree_add_odd_widths(points, m):
+    """_tree_add at odd and even widths equals the pairwise reference
+    order (i with i + m//2, the odd node carried)."""
+    width = 2
+    pts = tuple(t.repeat(3, 1)[:m * width].reshape(m, width, F.LIMBS)
+                for t in _proj(points, "port"))
+    pts = _set_identity(pts, (m // 2, 0))
+    cur, n = pts, m
+    while n > 1:
+        half = n // 2
+        s = C.add(tuple(t[:half] for t in cur), tuple(t[half:2 * half] for t in cur))
+        cur = tuple(torch.cat([a, t[2 * half:]]) for a, t in zip(s, cur))
+        n = cur[0].shape[0]
+    got = M._tree_add(pts)
+    assert all(torch.equal(a, b[0]) for a, b in zip(got, cur))
+
+
+def test_masked_add_equals_select_then_add(points):
+    rng = np.random.default_rng(3)
+    nodes = _set_identity(_proj(points, "port"), 4)
+    n = 40
+    index = torch.as_tensor(rng.integers(0, 16, n), dtype=torch.int64)
+    mask = torch.as_tensor(rng.integers(0, 2, n).astype(bool))
+    mask[:2] = torch.tensor([True, False])
+    index[0] = 4                                  # a gathered identity
+    acc = tuple(t.repeat(3, 1)[:n].clone() for t in _proj(points[::-1], "port"))
+    acc = _set_identity(acc, 1)                   # O + O at a clear bit
+    ident = C.identity()
+    for p in (acc, ident):
+        node = tuple(F.select(mask, t[index], i) for t, i in zip(nodes, ident))
+        exp = C.add(p, node)
+        got = C.masked_add(p, nodes, index, mask)
+        assert all(torch.equal(a, b) for a, b in zip(got, exp))
+    with pytest.raises(ValueError):
+        C.masked_add(acc, nodes, index.to(torch.int32), mask)
+
+
+def test_add_reads_strided_views_in_place():
+    """The stride description the card's adder is launched with names
+    the rows the view holds (and refuses what it cannot describe)."""
+    base = torch.arange(6 * 10 * 16, dtype=torch.int32).reshape(6, 10, 16)
+
+    def rows(view):
+        n_rows, inner, outer = cuda_curve._strides(view)
+        r = torch.arange(view.numel() // 16) % n_rows
+        at = r if inner >= n_rows else (r // inner) * outer + r % inner
+        first = int(view.reshape(-1)[0]) // 16
+        return base.reshape(-1, 16)[first + at]
+
+    for view in (base, base[:, :5], base[:, 5:], base[2:4], base[1, 3:7],
+                 base[:, 2:3], base[:, ::2], base[0, 0].expand(4, 7, 16),
+                 base[0].expand(3, 10, 16)):
+        assert torch.equal(rows(view), view.reshape(-1, 16)), view.shape
+    assert cuda_curve._strides(base[:, 1:8:2][1:]) is None
+    assert cuda_curve._strides(base[..., ::2]) is None
+    assert cuda_curve._strides(base.transpose(0, 1)) is None
+
+
 @pytest.fixture(scope="module")
 def msm_inputs():
     rnd = random.Random(9)

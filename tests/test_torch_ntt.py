@@ -90,8 +90,63 @@ def test_k15_against_pallas_interpret():
     assert _eq(got, exp)
 
 
+@pytest.mark.parametrize("k", [12, 13])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shift", [False, True])
+def test_fused_passes_against_pallas_interpret(k, inverse, shift):
+    """The card's composition (two fused K2 passes: strided rows, shift on
+    load, mid twiddle in the epilogue, natural-order store), run through
+    the kernel's plain version, against the reference's ntt_many and its
+    Pallas lattice in interpret mode; count 3, odd k included."""
+    count = 3
+    a = _rand(count << k, 40 + k)
+    sp = F.FR.host_powers(5, 1 << k) if shift else None
+    dom = JN.domain(JF.FR, k)
+    exp = JN.ntt_many(dom, jnp.asarray(a), count, inverse=inverse,
+                      shift_pows=None if sp is None else jnp.asarray(sp))
+    shifted = jnp.asarray(a) if sp is None else JF.mont_mul(
+        JF.FR, jnp.asarray(a), jnp.tile(jnp.asarray(sp), (count, 1)))
+    PN.set_interpret(True)
+    try:
+        assert _eq(F.limbs(np.asarray(exp), "cpu"),
+                   PN.ntt_flat(dom, shifted, count, inverse=inverse))
+    finally:
+        PN.set_interpret(False)
+    got = ntt._ntt_flat_cuda(ntt.domain(F.FR, k), F.limbs(a, "cpu"), count,
+                             inverse, None if sp is None else F.limbs(sp, "cpu"))
+    assert _eq(got, exp)
+
+
+@pytest.mark.parametrize("k,count", [(1, 2), (4, 1), (7, 5), (11, 2)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fused_single_pass(k, count, inverse):
+    """k <= 11: one fused pass with the bit reversal, the shift and n^-1
+    inside it equals the reference's ntt_many."""
+    a = _rand(count << k, 60 + k)
+    sp = F.FR.host_powers(7, 1 << k)
+    got = ntt._ntt_flat_cuda(ntt.domain(F.FR, k), F.limbs(a, "cpu"), count,
+                             inverse, F.limbs(sp, "cpu"))
+    exp = JN.ntt_many(JN.domain(JF.FR, k), jnp.asarray(a), count,
+                      inverse=inverse, shift_pows=jnp.asarray(sp))
+    assert _eq(got, exp)
+
+
+def test_fused_plain_is_the_cpu_route():
+    k, lt, count = 6, 3, 2
+    x = F.limbs(_rand(count << k, 3), "cpu")
+    tw = ntt._twiddles(F.FR, lt, False, "cpu")
+    for transposed in (False, True):
+        assert torch.equal(
+            cuda_ntt.ntt_fused(F.FR, x, count, k, lt, tw, transposed),
+            cuda_ntt.ntt_fused_plain(F.FR, x, count, k, lt, tw, transposed))
+
+
 def test_pass_wrapper_checks_shape():
-    x = torch.zeros((2, 48, 16), dtype=torch.int32, device="meta")
-    tw = torch.zeros((16, 48), dtype=torch.int32, device="meta")
+    x = torch.zeros((2 * 64, 16), dtype=torch.int32, device="meta")
+    tw = torch.zeros((4, 16), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):          # 48 twiddles asked of a T=8 pass
+        cuda_ntt.ntt_fused(F.FR, x, 2, 6, 3, tw[:3], False)
+    with pytest.raises(ValueError):          # a meta tensor is no CUDA tensor
+        cuda_ntt.ntt_fused(F.FR, x, 2, 6, 3, tw, False)
     with pytest.raises(ValueError):
-        cuda_ntt.ntt_pass(F.FR, x, tw)
+        cuda_ntt.ntt_fused(F.FR, x, 2, 6, 12, tw, False)
