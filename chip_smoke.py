@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one CUDA card.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [golden,mock,ipa,mini,srs_format]
+
+With no argument every phase runs; with a comma-separated list only the
+device and build phases and the named ones do, and no ok line is printed.
 
 Phases, each printing one JSON line as it ends:
   0 device      the card (fails without CUDA), its name and power limit
   1 build       nvcc-builds the kernels of csrc/ (K1 mont_mul, K2 the fused
                 NTT pass, K3 curve add / fold / masked add / doublings, P1
                 mul probe, P2a/P2b Montgomery probes on limb-major
-                planes), one nvcc per source in parallel
+                planes), one nvcc per source in parallel, and the host
+                C++ library (the verifier's G1 MSM and pairing product),
+                which must pass its self-test and be the route in force
   2 kernels     each kernel and entry against its plain PyTorch version,
                 bit-exact, on card tensors at its path's shapes, with times
                 and the card's bound for the same work (K1-K3 also at the
                 k=20 prove's shapes, where one ntt_many must launch K2
-                twice, K1 never and no PyTorch kernel)
+                twice, K1 never and no PyTorch kernel; P1 also at the
+                (16, 2^22) planes that fill the card)
   3 golden      the K=6 golden proofs (toy, tagged toy, instance toy;
-                GWC and packed-lookup proofs of the first two) proved on
-                the card equal the JAX reference's committed bytes and
-                verify
+                GWC and packed-lookup proofs of the first two; the IPA
+                proofs of the first two against the transparent basis)
+                proved on the card equal the JAX reference's committed
+                bytes and verify
   4 flagship    AES-128 at k=17, 4 sets, 384 blocks, tagged ops:
                 setup, keygen, witness, warm-up prove, timed prove,
                 verify, a flipped byte rejected; every kernel launched
@@ -41,7 +48,29 @@ Phases, each printing one JSON line as it ends:
                 prove, verify, a flipped byte rejected, peak memory; and
                 a K=6 toy prove crashed after its products phase resumes
                 from its checkpoints to the golden bytes
-Phases 4, 5-8 and the k=20 prove of 9 each set the launch counts to 0
+ 10 mock        the vectorized MockProver on the card: at the flagship
+                layout and at the reference's mock bench shape (k=17, 2
+                sets, 192 blocks) the witness satisfies every constraint,
+                and a corrupted rcon cell, a corrupted lookup input and a
+                broken copy are each counted; blocks/s of the warm
+                witness + check step; then the reference's own MockProver
+                configuration (k=20, 3 sets, 1000 encryptions, zero key
+                and plaintext): satisfied, seconds, peak memory
+ 11 ipa         the IPA proving system at the flagship shape: transparent
+                basis (cached in ptau/), keygen, warm-up and timed prove,
+                verify, a flipped last byte and a flipped early byte
+                rejected, the KZG verifier rejects the proof, its length
+                is the cost model's; every kernel and K3 entry launched
+ 12 mini        mini-AES (GF(2^4)) at k=11, 2 sets, 2 blocks: mock
+                satisfied, proved, verified, bytes equal the golden proof
+ 13 srs_format  the flagship's dev SRS written in halo2's ParamsKZG
+                format and read back: same points and identity tag, and a
+                proof made with the re-read SRS verifies
+ 14 native      every verify above ran through the native host library;
+                the flagship proof verified again through the pure-Python
+                route gives the same verdicts (valid and flipped byte),
+                with the seconds of each route
+Phases 4, 5-8, the k=20 prove of 9 and 11 each set the launch counts to 0
 before they drive their path and fail if a kernel of the path never
 launched.  Then the card line, the kernels record and, last, the ok
 line.  Any failure raises and the exit code is non-zero.
@@ -94,12 +123,19 @@ def phase_device():
 def phase_build():
     from halo2_aes_tpu_torch.ops import _build
 
+    from halo2_aes_tpu_torch import native
+
     path, seconds, log = _build.build()
     _build.library()
     regs = [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln]
+    t0 = time.perf_counter()
+    native.library()                 # raises if the build or self-test fails
+    if native.route() != "native":
+        raise AssertionError(f"the host route is {native.route()!r}, not native")
     emit({"phase": "build", "seconds": seconds, "library": os.path.relpath(path, REPO),
-          "ptxas": regs})
+          "ptxas": regs, "host_library_seconds": time.perf_counter() - t0,
+          "host_library": os.path.relpath(_build.build_host(), REPO)})
 
 
 def _random_field(spec, rows: int, rng, device):
@@ -301,6 +337,22 @@ def phase_kernels(dev) -> dict:
     # four cases: three (16, n) planes moved and n * k multiplies each
     p1.update(bound(4 * 3 * ELEM_BYTES * n, 2 * (64 + 512) * n))
     rec["P1"] = p1
+
+    # P1 at the size that fills the card: (16, 2^22) planes, k = 512 (the
+    # row above is four launch-sized calls)
+    n = 1 << 22
+    a, b = (torch.randint(-(1 << 31), (1 << 31) - 1, (F.LIMBS, n), device=dev,
+                          dtype=torch.int32) for _ in range(2))
+    e = err(cuda_probe.mul_probe(a, b, 512, False),
+            cuda_probe.mul_probe_plain(a, b, 512, False))
+    if e:
+        raise AssertionError(f"P1 at (16, 2^22): max abs err {e}")
+    rec["P1_full"] = {
+        "errors": {"k512": e}, "shape": "(16, 2^22) planes, k = 512",
+        "ms": _time_ms(lambda: cuda_probe.mul_probe(a, b, 512, False), 20),
+        "plain_ms": _time_ms(lambda: cuda_probe.mul_probe_plain(a, b, 512, False), 1, 1),
+        **bound(3 * ELEM_BYTES * n, 512 * n)}
+    del a, b
 
     # P2a, P2b: (16, 2^20) Fr planes with the edges 0, 1, p-1, R mod p,
     # against their plain versions and K1's plain version on the
@@ -601,7 +653,9 @@ def phase_golden(dev):
     from halo2_aes_tpu_torch.backend import prover as PV
     from halo2_aes_tpu_torch.backend import srs as SRS
     from halo2_aes_tpu_torch.backend import verifier as VF
-    from halo2_aes_tpu_torch.circuit.toys import GOLDEN_PROOFS, K, TOYS
+    from halo2_aes_tpu_torch.backend import ipa as IPA
+    from halo2_aes_tpu_torch.circuit.toys import (GOLDEN_IPA_PROOFS,
+                                                  GOLDEN_PROOFS, K, TOYS)
 
     with open(os.path.join(REPO, "halo2_aes_tpu_torch", "testdata",
                            "golden_k6.json")) as f:
@@ -609,6 +663,18 @@ def phase_golden(dev):
     srs = SRS.setup(K, dev, cache_dir=None)
     pks = {}
     out = {}
+    basis = IPA.setup(K, dev, cache_dir=None)
+    for name, toy in GOLDEN_IPA_PROOFS.items():
+        build, seed, instances = TOYS[toy]
+        layout, values = build()
+        pk = KG.keygen(layout, basis)
+        if hex(pk.vk.digest) != golden[name]["vk_digest"]:
+            raise AssertionError(f"golden {name}: vk digest differs")
+        proof = PV.prove(pk, values, seed=seed, multiopen="ipa")
+        if proof.hex() != golden[name]["proof"]:
+            raise AssertionError(f"golden {name}: proof bytes differ")
+        IPA.verify(pk.vk, proof, instances=instances, srs=basis)
+        out[name] = len(proof)
     for name, (toy, opts) in GOLDEN_PROOFS.items():
         build, seed, instances = TOYS[toy]
         layout, values = build()
@@ -734,7 +800,7 @@ def phase_flagship(dev) -> dict:
           "prove_s": prove_s, **t, "proof_bytes": len(proof), "verified": True,
           "flipped_byte_rejected": rejected, "peak_mem_bytes": peak,
           "launches": counts})
-    return counts, pk, values
+    return counts, pk, values, proof
 
 
 def phase_probes(dev) -> dict:
@@ -1025,10 +1091,291 @@ def large_resume(dev) -> dict:
     return {"checkpoints_before_resume": saved, "resumed_equals_golden": True}
 
 
-def kernels_record(rec: dict, counts: dict) -> dict:
+def corrupted_counts(layout, values) -> dict:
+    """``violation_counts`` of three single-cell corruptions of a
+    satisfying AES values matrix: the rcon cell of the key schedule (a
+    gate), the output of the first AddRoundKey xor of block 0 (a lookup
+    input, and the copy that reads it), and plaintext byte 0 of block 0
+    (the source of a copy)."""
+    from halo2_aes_tpu_torch.circuit import mock
+
+    cols = layout.meta["columns"]
+    base = int(layout.meta["block_starts"][0])
+    adv = cols.chip_sets[0].advice
+    cells = {"gate": (cols.words, 20, 0xFF), "lookup": (adv[2], base + 16, 1),
+             "copy": (adv[0], base, 1)}
+    out = {}
+    for name, (col, row, flip) in cells.items():
+        bad = values.clone()
+        bad[col, row] ^= flip
+        out[name] = {k: int(v) for k, v in mock.violation_counts(layout, bad).items()}
+    if not (out["gate"]["gates"] > 0 and out["lookup"]["lookups"] > 0
+            and out["lookup"]["copies"] > 0 and out["copy"]["copies"] > 0):
+        raise AssertionError(f"mock: a corrupted cell was not counted: {out}")
+    return out
+
+
+def phase_mock(dev) -> None:
+    """The vectorized MockProver on the card (no kernel of csrc/ is on
+    this path: gates, lookups and copies are PyTorch integer ops)."""
+    import torch
+
+    from halo2_aes_tpu_torch.circuit import mock, witness
+    from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
+
+    bench = _script("torch_bench_mock")
+    rec = {}
+    for label, cfg in (("flagship", FLAGSHIP),
+                       ("bench", dict(k=17, n_sets=2, n_blocks=192, tagged_ops=False))):
+        layout = compile_circuit(AesConfig(**cfg))
+        run = bench.run(dev, layout, reps=3)
+        key = torch.zeros(16, dtype=torch.uint8, device=dev)
+        pts = (torch.arange(cfg["n_blocks"] * 16, device=dev) % 256).to(
+            torch.uint8).reshape(-1, 16)
+        values = witness.assemble_values(layout, witness.build_pool(key, pts))
+        if values.device.type != "cuda":
+            raise AssertionError("mock: the values matrix is not on the card")
+        mock.assert_satisfied(layout, values)
+        rec[label] = {**cfg, "blocks_per_s": run["value"], "step_s": run["step_s"],
+                      "first_step_s": run["first_step_s"],
+                      "held_before_bytes": run["held_before_bytes"],
+                      "peak_mem_bytes": run["peak_mem_bytes"], "satisfied": True,
+                      "corrupted": corrupted_counts(layout, values)}
+        del layout, values
+    # the reference's own MockProver configuration
+    cfg = dict(k=20, n_sets=3, n_blocks=1000)
+    free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)     # earlier phases' cached tables
+    t0 = time.perf_counter()
+    layout = compile_circuit(AesConfig(**cfg))
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    values = witness.assemble_values(layout, witness.build_pool(
+        torch.zeros(16, dtype=torch.uint8, device=dev),
+        torch.zeros((cfg["n_blocks"], 16), dtype=torch.uint8, device=dev)))
+    counts = {k: int(v) for k, v in mock.violation_counts(layout, values).items()}
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report = mock.check(layout, values)
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    if any(counts.values()) or not report.ok:
+        raise AssertionError(f"mock: k=20 not satisfied: {counts} {report.message()}")
+    rec["mockprover_k20"] = {**cfg, "compile_s": compile_s,
+                             "witness_and_counts_s": first_s, "check_s": check_s,
+                             "satisfied": True, "held_before_bytes": held,
+                             "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    emit({"phase": "mock", **rec})
+
+
+def phase_ipa(dev) -> dict:
+    """The IPA proving system at the flagship shape; returns launch counts."""
+    import numpy as np
+    import torch
+
+    from halo2_aes_tpu_torch.backend import ipa as IPA
+    from halo2_aes_tpu_torch.backend import keygen as KG
+    from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.backend import verifier as VF
+    from halo2_aes_tpu_torch.circuit import witness
+    from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
+    from halo2_aes_tpu_torch.utils import cost_model
+
+    cfg = FLAGSHIP
+    cache = os.path.join(REPO, "ptau")
+    t = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        t[name] = time.perf_counter() - t0
+        return out
+
+    layout = compile_circuit(AesConfig(**cfg))
+    srs = timed("setup_s", IPA.setup, cfg["k"], dev, cache_dir=cache)
+    again = timed("setup_cached_s", IPA.setup, cfg["k"], dev, cache_dir=cache)
+    if not (torch.equal(again.g1_x, srs.g1_x) and again.u_pt == srs.u_pt
+            and again.identity_tag() == srs.identity_tag()):
+        raise AssertionError("ipa: the cached basis differs from the built one")
+    del again
+    pk = timed("keygen_s", KG.keygen_cached, layout, srs, cache_dir=cache)
+    rng = np.random.default_rng(0)
+    key = torch.as_tensor(rng.integers(0, 256, 16, dtype=np.uint8), device=dev)
+    pts = torch.as_tensor(rng.integers(0, 256, (cfg["n_blocks"], 16),
+                                       dtype=np.uint8), device=dev)
+    values = witness.assemble_values(layout, witness.build_pool(key, pts))
+    timed("warmup_prove_s", PV.prove, pk, values, multiopen="ipa")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    proof = timed("prove_s", PV.prove, pk, values, multiopen="ipa")
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = read_counts()
+    timed("verify_s", IPA.verify, pk.vk, proof, srs=srs)
+    for label, pos in (("last", -1), ("early", 5)):
+        bad = bytearray(proof)
+        bad[pos] ^= 1
+        try:
+            IPA.verify(pk.vk, bytes(bad), srs=srs)
+        except ValueError:            # VerifyError or a malformed transcript
+            continue
+        raise AssertionError(f"ipa: a proof with a flipped {label} byte verified")
+    try:
+        VF.verify(pk.vk, proof)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("ipa: the KZG verifier accepted an IPA proof")
+    want = cost_model.estimate(layout, multiopen="ipa").proof_bytes
+    if len(proof) != want:
+        raise AssertionError(f"ipa: proof is {len(proof)} bytes, the cost model "
+                             f"says {want}")
+    require_launched("ipa", counts, PATH_KERNELS)
+    emit({"phase": "ipa", **cfg, **t, "blocks_per_s": cfg["n_blocks"] / t["prove_s"],
+          "proof_bytes": len(proof), "cost_model_proof_bytes": want,
+          "verified": True, "flipped_bytes_rejected": True,
+          "kzg_verifier_rejects": True, "peak_mem_bytes": peak,
+          "launches": counts})
+    return counts
+
+
+def phase_mini(dev) -> None:
+    """Mini-AES at k=11, 2 sets, 2 blocks: mock, prove, verify, golden."""
+    import torch
+
+    from halo2_aes_tpu_torch.backend import keygen as KG
+    from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.backend import srs as SRS
+    from halo2_aes_tpu_torch.backend import verifier as VF
+    from halo2_aes_tpu_torch.circuit import mock, witness
+    from halo2_aes_tpu_torch.circuit.toys import (MINI_CONFIG, MINI_PROVE_SEED,
+                                                  mini_inputs)
+    from halo2_aes_tpu_torch.models import aes_mini as MINI
+
+    with open(os.path.join(REPO, "halo2_aes_tpu_torch", "testdata",
+                           "golden_mini_k11.json")) as f:
+        golden = json.load(f)["mini"]
+    layout = MINI.compile_mini_circuit(MINI.MiniAesConfig(**MINI_CONFIG))
+    key, pts = (torch.as_tensor(a, device=dev) for a in mini_inputs())
+    pool = MINI.build_pool_mini(key, pts)
+    values = witness.assemble_values(layout, pool)
+    mock.assert_satisfied(layout, values)
+    bad = pool.clone()
+    bad[400] ^= 1
+    counts = mock.violation_counts(layout, witness.assemble_values(layout, bad))
+    if sum(int(v) for v in counts.values()) == 0:
+        raise AssertionError("mini: a corrupted nibble was not counted")
+    pk = KG.keygen(layout, SRS.setup(MINI_CONFIG["k"], dev, cache_dir=None))
+    if hex(pk.vk.digest) != golden["vk_digest"]:
+        raise AssertionError("mini: vk digest differs from the golden one")
+    t0 = time.perf_counter()
+    proof = PV.prove(pk, values, seed=MINI_PROVE_SEED)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    if proof.hex() != golden["proof"]:
+        raise AssertionError("mini: proof bytes differ from the golden proof")
+    VF.verify(pk.vk, proof)
+    if not rejects_flipped_byte(lambda p: VF.verify(pk.vk, p), proof):
+        raise AssertionError("mini: a proof with a flipped byte verified")
+    emit({"phase": "mini", **MINI_CONFIG, "mock_satisfied": True,
+          "corrupted_nibble_counted": True, "prove_s": prove_s,
+          "proof_bytes": len(proof), "identical": True, "verified": True,
+          "flipped_byte_rejected": True})
+
+
+def phase_srs_format(dev) -> None:
+    """The flagship's dev SRS through halo2's ParamsKZG file format."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from halo2_aes_tpu_torch.backend import keygen as KG
+    from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.backend import srs as SRS
+    from halo2_aes_tpu_torch.backend import srs_format as SF
+    from halo2_aes_tpu_torch.backend import verifier as VF
+    from halo2_aes_tpu_torch.circuit import witness
+    from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
+    from halo2_aes_tpu_torch.ops import field as F
+
+    cfg = FLAGSHIP
+    k = cfg["k"]
+    seed = b"halo2_aes_tpu dev srs"           # SRS.setup's default seed
+    tau = int.from_bytes(hashlib.blake2b(seed, digest_size=64).digest(),
+                         "little") % F.FR.modulus
+    srs = SRS.setup(k, dev, cache_dir=None)
+    root = os.path.join(REPO, "build", "smoke_srs")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    path = os.path.join(root, f"kzg_bn254_{k}.srs")
+    t0 = time.perf_counter()
+    SF.write_srs(path, srs, tau=tau)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    if size != 4 + 2 * (1 << k) * 64 + 256:
+        raise AssertionError(f"srs_format: the file is {size} bytes")
+    t0 = time.perf_counter()
+    back = SF.read_srs(path, dev)
+    read_s = time.perf_counter() - t0
+    shutil.rmtree(root)
+    if not (back.k == k and torch.equal(back.g1_x, srs.g1_x)
+            and torch.equal(back.g1_y, srs.g1_y)
+            and (back.g2, back.s_g2) == (srs.g2, srs.s_g2)
+            and back.identity_tag() == srs.identity_tag()):
+        raise AssertionError("srs_format: the re-read SRS differs")
+    del srs
+    layout = compile_circuit(AesConfig(**cfg))
+    pk = KG.keygen(layout, back)
+    rng = np.random.default_rng(0)
+    key = torch.as_tensor(rng.integers(0, 256, 16, dtype=np.uint8), device=dev)
+    pts = torch.as_tensor(rng.integers(0, 256, (cfg["n_blocks"], 16),
+                                       dtype=np.uint8), device=dev)
+    values = witness.assemble_values(layout, witness.build_pool(key, pts))
+    proof = PV.prove(pk, values)
+    VF.verify(pk.vk, proof)
+    if not rejects_flipped_byte(lambda p: VF.verify(pk.vk, p), proof):
+        raise AssertionError("srs_format: a proof with a flipped byte verified")
+    emit({"phase": "srs_format", "k": k, "file_bytes": size, "write_s": write_s,
+          "read_s": read_s, "same_points": True, "same_identity_tag": True,
+          "proof_bytes": len(proof), "verified_with_reread_srs": True})
+
+
+def phase_native(vk, proof: bytes) -> None:
+    """Every verify so far took the native route; the flagship proof once
+    more through each route, with the same verdicts."""
+    from halo2_aes_tpu_torch import native
+    from halo2_aes_tpu_torch.backend import verifier as VF
+
+    calls = dict(native.CALLS)
+    if native.route() != "native" or calls["native"] == 0 or calls["python"]:
+        raise AssertionError(f"native: the verifies did not all take the native "
+                             f"route: {native.route()} {calls}")
+    rec = {"calls_before": calls}
+    for route in ("native", "python"):
+        native.set_route(route)
+        try:
+            before = native.CALLS[route]
+            t0 = time.perf_counter()
+            VF.verify(vk, proof)
+            rec[f"verify_{route}_s"] = time.perf_counter() - t0
+            if not rejects_flipped_byte(lambda p: VF.verify(vk, p), proof):
+                raise AssertionError(f"native: the {route} route accepted a "
+                                     "flipped byte")
+            if native.CALLS[route] == before:
+                raise AssertionError(f"native: the {route} route was not taken")
+        finally:
+            native.set_route(None)
+    emit({"phase": "native", **rec, "routes_agree": True})
+
+
+def kernels_record(rec: dict, counts: dict, ipa_counts: dict) -> dict:
     """One row per kernel and entry: the launches of the flagship path's
-    run, and this run's error, times and bound at the kernels phase's
-    shapes.  No PyTorch call computes a BN254 Montgomery product, an NTT
+    run (``ipa_launches``: of the IPA path's), and this run's error, times
+    and bound at the kernels phase's shapes.  No PyTorch call computes a BN254 Montgomery product, an NTT
     over Fr or a G1 addition, so ``library_ms`` is null throughout."""
     from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_ntt, cuda_probe
 
@@ -1042,11 +1389,14 @@ def kernels_record(rec: dict, counts: dict) -> dict:
             ("K3_double", "K3_double", "curve_double_n", *k3)]
     rows += [(key, key, name, cuda_probe.SOURCE[name], cuda_probe.REPLACES[name])
              for key, name in PROBE_KERNELS.items()]
+    rows.append(("P1_full", "P1", "mul_probe_full", cuda_probe.SOURCE["mul_probe"],
+                 cuda_probe.REPLACES["mul_probe"]))
     out = []
     for key, count_key, name, source, replaces in rows:
         r = rec[key]
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": counts[count_key],
+                    "ipa_launches": ipa_counts[count_key],
                     "max_abs_err": max(r["errors"].values()),
                     "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1065,7 +1415,7 @@ def free() -> None:
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(only: str = "") -> int:
     sys.path.insert(0, REPO)
     import torch
 
@@ -1074,9 +1424,17 @@ def main() -> int:
 
     dev = phase_device()
     phase_build()
+    if only:
+        # development aid: some of the later phases alone (no ok line)
+        for name in only.split(","):
+            {"golden": phase_golden, "mock": phase_mock, "ipa": phase_ipa,
+             "mini": phase_mini, "srs_format": phase_srs_format}[name](dev)
+            free()
+        return 0
     rec = phase_kernels(dev)
     phase_golden(dev)
-    counts, pk, values = phase_flagship(dev)
+    counts, pk, values, flagship_proof = phase_flagship(dev)
+    flagship_vk = pk.vk
     probe_counts = phase_probes(dev)
     counts.update({key: probe_counts[key] for key in PROBE_KERNELS})
     phase_gwc_packed(pk, values)
@@ -1090,8 +1448,16 @@ def main() -> int:
     emit({"phase": "large", "forced_sliced_k17": forced, "k20": large_k20(dev),
           "resume_k6": large_resume(dev)})
     free()
+    phase_mock(dev)
+    free()
+    ipa_counts = phase_ipa(dev)
+    free()
+    phase_mini(dev)
+    phase_srs_format(dev)
+    free()
+    phase_native(flagship_vk, flagship_proof)
     print(card_line(), flush=True)
-    emit(kernels_record(rec, counts))
+    emit(kernels_record(rec, counts, ipa_counts))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -1099,4 +1465,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(*sys.argv[1:2]))

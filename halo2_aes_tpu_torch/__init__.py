@@ -2,8 +2,12 @@
 
 A second implementation of ``halo2_aes_tpu`` on one NVIDIA H100:
 compile the AES encryption or decryption circuit, SRS setup, keygen,
-witness, KZG prove with SHPLONK or GWC multiopen, verify, and AES-CTR
-keystream bundles (``ctr.py``).  Plain tensor code is PyTorch; every
+witness, KZG prove with SHPLONK or GWC multiopen, verify, AES-CTR
+keystream bundles (``ctr.py``), the IPA proving system
+(``backend/ipa.py``), the vectorized MockProver (``circuit/mock.py``),
+mini-AES (``models/aes_mini.py``), ``.srs`` files
+(``backend/srs_format.py``) and the dev tools (``utils/``); the
+verifier's host side is C++ (``native/``).  Plain tensor code is PyTorch; every
 Pallas TPU kernel of the reference is a hand-written CUDA kernel under
 ``csrc/`` (``ops/cuda_field.py``, ``ops/cuda_ntt.py``,
 ``ops/cuda_curve.py``, and the probes' ``ops/cuda_probe.py``).

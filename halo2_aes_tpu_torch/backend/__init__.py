@@ -2,9 +2,10 @@
 
 Circuit code is written once against a small backend interface and the
 backend is picked at run time by name.  Registered here:
-"kzg-shplonk" (the default) and "kzg-gwc" (the same pipeline with the
-plonk-style per-point multiopen).  The reference's third backend,
-"ipa", is not ported yet (ROADMAP A12) and raises NotImplementedError.
+"kzg-shplonk" (the default), "kzg-gwc" (the same pipeline with the
+plonk-style per-point multiopen) and "ipa" (backend/ipa.py: transparent
+setup, pairing-free inner-product-argument openings over the same PLONK
+phases — a second proving system).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ class Backend:
     prove: Callable           # (pk, values, instances=None, seed=None,
     #                           checkpoint_dir=None) -> bytes
     verify: Callable          # (vk, proof, instances=None) -> True or raises
+    #                           (ipa: also srs=, the basis to verify against)
 
 
 def register(backend: Backend) -> None:
@@ -43,8 +45,13 @@ def get_backend(name: str = "kzg-shplonk") -> Backend:
                              functools.partial(PV.prove, multiopen=engine),
                              functools.partial(VF.verify, multiopen=engine)))
         elif name == "ipa":
-            raise NotImplementedError(
-                "the IPA backend is not ported (ROADMAP A12)")
+            from halo2_aes_tpu_torch.backend import ipa as IPA
+            from halo2_aes_tpu_torch.backend import keygen as KG
+            from halo2_aes_tpu_torch.backend import prover as PV
+
+            register(Backend("ipa", IPA.setup, KG.keygen_cached,
+                             functools.partial(PV.prove, multiopen="ipa"),
+                             IPA.verify))
         else:
             raise KeyError(
                 f"unknown backend {name!r}; registered: {sorted(_REGISTRY)}")

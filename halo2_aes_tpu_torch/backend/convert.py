@@ -11,16 +11,22 @@ import torch
 
 from halo2_aes_tpu_torch.backend.keygen import ProvingKey, VerifyingKey
 from halo2_aes_tpu_torch.backend.permutation import PermutationAssembly
-from halo2_aes_tpu_torch.backend.srs import SRS
+from halo2_aes_tpu_torch.backend.srs import SRS, _tag_from_host
 from halo2_aes_tpu_torch.ops import field as F
 
 
 def srs_from_numpy(k: int, g1_x, g1_y, g2, s_g2, device, g1_extra=None,
-                   cache_dir=None) -> SRS:
-    """(n, 16) uint32 affine Montgomery G1 powers + G2 ints -> SRS."""
+                   cache_dir=None, u_pt=None, w_pt=None) -> SRS:
+    """(n, 16) uint32 affine Montgomery G1 powers + G2 ints -> SRS; an
+    IPA basis brings its ``u_pt`` and ``w_pt`` (and its identity tag is
+    then the IPA one)."""
     device = torch.device(device)
-    return SRS(k, F.limbs(g1_x, device), F.limbs(g1_y, device), g2, s_g2,
-               cache_dir=cache_dir, g1_extra=g1_extra)
+    srs = SRS(k, F.limbs(g1_x, device), F.limbs(g1_y, device), g2, s_g2,
+              cache_dir=cache_dir, g1_extra=g1_extra, u_pt=u_pt, w_pt=w_pt)
+    if u_pt is not None:
+        object.__setattr__(srs, "_tag", _tag_from_host(
+            np.asarray(g1_x), np.asarray(g1_y), ("ipa2", u_pt, w_pt)))
+    return srs
 
 
 def pk_from_numpy(layout, srs: SRS, *, ext_k: int, usable: int, fixed_ids,

@@ -353,10 +353,16 @@ def pairing_product_is_one(pairs) -> bool:
     """prod e(P_i, Q_i) == 1, with a single shared final exponentiation.
 
     The KZG check e(W, [tau]_2) = e(L, [1]_2) is phrased as
-    pairing_product_is_one([(L, G2), (-W, [tau]_2)]).  Pure python
-    bigints; the reference package's native C++ route has no
-    counterpart in this package yet.
+    pairing_product_is_one([(L, G2), (-W, [tau]_2)]).  Routes through
+    the native C++ library (halo2_aes_tpu_torch.native) on the native
+    host route; this python-bigint path is the correctness oracle and
+    the route taken on request.
     """
+    from halo2_aes_tpu_torch import native
+
+    if native.route() == "native":
+        return native.pairing_product_is_one(pairs)
+    native.CALLS["python"] += 1
     f = FQ12_ONE
     for p_g1, q_g2 in pairs:
         f = fq12_mul(f, miller_loop(q_g2, p_g1))

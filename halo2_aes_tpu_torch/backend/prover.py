@@ -704,8 +704,8 @@ class _Phases:
 
     def ipa_l(self, poly_flat, svals, h_shp, neg_zt_u, const_corr):
         """The SHPLONK residual L(X) = -Z_T(u) h + sum_g s_g p_g - const
-        before its division by (X - u) (the reference's IPA backend opens
-        L at u directly; ROADMAP A12)."""
+        before its division by (X - u) (the IPA backend, backend/ipa.py,
+        opens L at u directly)."""
         n = self.n
         acc = F.mont_mul(FR, h_shp, neg_zt_u)
         for g in range(svals.shape[0]):
@@ -773,8 +773,9 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     of python ints.  ``seed`` selects a reproducible blinding stream
     (tests only; None draws from os.urandom).  Returns proof bytes.
 
-    ``multiopen``: "shplonk" (default) or "gwc" (one witness per
-    rotation point).  ``lookup_sort``: "field" (default; halo2's order
+    ``multiopen``: "shplonk" (default), "gwc" (one witness per
+    rotation point) or "ipa" (the pairing-free opening argument of
+    backend/ipa.py; needs a pk built against ``ipa.setup``'s basis).  ``lookup_sort``: "field" (default; halo2's order
     by canonical field value) or "packed" (uint32 keys of byte-ranged
     columns; other proof bytes, the same argument).  ``checkpoint_dir``:
     save each heavy phase there and resume a crashed prove at the first
@@ -782,7 +783,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     only: ``mesh`` and larger k raise NotImplementedError."""
     if mesh is not None:
         raise NotImplementedError("mesh proving is not ported (ROADMAP A15)")
-    if multiopen not in ("shplonk", "gwc"):
+    if multiopen not in ("shplonk", "gwc", "ipa"):
         raise ValueError(f"unknown multiopen {multiopen!r}")
     if lookup_sort not in ("field", "packed"):
         raise ValueError(f"unknown lookup_sort {lookup_sort!r}")
@@ -1140,6 +1141,28 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
             const_corr = (const_corr
                           - s * y2w % FR.modulus * cn % FR.modulus
                           * (gn - xn)) % FR.modulus
+
+    if multiopen == "ipa":
+        from halo2_aes_tpu_torch.backend import ipa as IPA
+
+        # a transparent basis has no g1_extra, so the stagger-blind
+        # corrections (cn) are structurally zero on this path
+        if cn != 0:
+            raise AssertionError("ipa prove with KZG-blinded quotient pieces")
+        # a ceremony KZG SRS also has g1_extra=None (cn==0) but carries
+        # no u-point; without this guard the failure surfaces deep in
+        # _point_plus_u as CV.py_mul(None, ...)
+        if getattr(pk.srs, "u_pt", None) is None:
+            raise AssertionError(
+                "ipa prove requires an IPA transparent basis from ipa.setup "
+                "(this SRS has no u-point; pass multiopen='shplonk' or "
+                "build the pk against ipa.setup(k))")
+        l_poly = ph.ipa_l(poly_flat, T(svals_np), h_shp,
+                          enc(FR.modulus - zt_u), enc(const_corr))
+        IPA.open_claim(pk.srs, tr, l_poly, u, rng=rng)
+        if ck:
+            ck.clear()
+        return tr.finalize()
 
     q_w = ph.shplonk_l(
         poly_flat, T(svals_np), h_shp, enc(FR.modulus - zt_u),

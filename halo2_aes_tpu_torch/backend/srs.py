@@ -40,7 +40,13 @@ class SRS:
     s_g2: tuple              # [tau] G2
     cache_dir: str | None = None
     g1_extra: tuple | None = None  # [tau^n] G1 (plain affine ints), for the
-    #   staggered quotient-piece blinds (backend/prover.py)
+    #   staggered quotient-piece blinds (backend/prover.py); None for
+    #   ceremony .srs files and for the IPA basis
+    u_pt: tuple | None = None      # IPA folding point U (plain affine ints);
+    #   set only by backend/ipa.py's transparent setup — None for KZG.
+    w_pt: tuple | None = None      # IPA blinding point W (plain affine ints):
+    #   carries the per-round Pedersen blinds of the opening argument
+    #   (halo2 poly/ipa's W); hash-derived in backend/ipa.py, None for KZG.
 
     @property
     def n(self) -> int:

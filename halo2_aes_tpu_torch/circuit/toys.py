@@ -151,3 +151,24 @@ GOLDEN_PROOFS = {
     "toy_packed": ("toy", {"lookup_sort": "packed"}),
     "tagged_packed": ("tagged", {"lookup_sort": "packed"}),
 }
+
+# golden IPA proof name -> toy: proved with ``multiopen="ipa"`` and the
+# toy's seed against the transparent basis ``ipa.setup(K)`` (the entries
+# above are proved against the dev KZG SRS)
+GOLDEN_IPA_PROOFS = {"toy_ipa": "toy", "tagged_ipa": "tagged"}
+
+# the mini-AES golden proof (``testdata/golden_mini_k11.json``): the
+# k=11, 2-set, 2-block GF(2^4) circuit of ``models/aes_mini.py``, key and
+# plaintext nibbles from numpy's default_rng(MINI_DATA_SEED), SHPLONK
+# against the dev KZG SRS, blinding seed MINI_PROVE_SEED
+MINI_CONFIG = dict(k=11, n_sets=2, n_blocks=2)
+MINI_DATA_SEED = 4
+MINI_PROVE_SEED = 13
+
+
+def mini_inputs():
+    """(key uint8[16], plaintexts uint8[2, 16]) nibble values of the
+    mini-AES golden proof."""
+    rng = np.random.default_rng(MINI_DATA_SEED)
+    return (rng.integers(0, 16, 16, dtype=np.uint8),
+            rng.integers(0, 16, (MINI_CONFIG["n_blocks"], 16), dtype=np.uint8))

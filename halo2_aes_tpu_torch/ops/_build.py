@@ -1,4 +1,5 @@
-"""Build and load the CUDA kernels of ``csrc/`` (nvcc -> one .so, ctypes).
+"""Build and load the CUDA kernels of ``csrc/`` (nvcc -> one .so, ctypes)
+and the host C++ library beside them (``build_host``).
 
 The library is compiled at first use from the package's own sources
 into ``build/torch_kernels/<hash>/`` at the repository root (one nvcc
@@ -6,7 +7,10 @@ per ``.cu``, all started together, then one link), where the hash covers
 every ``csrc`` file, so an edited kernel is rebuilt and an unchanged one
 is loaded as is.  Each C entry point returns the
 ``cudaGetLastError()`` of its launch; ``check`` raises on a non-zero
-code.  Nothing here runs at import time.
+code.  ``csrc/bn254_host.cpp`` (the verifier's G1 MSM and pairing
+product: host C++, no device code) is built apart from the kernels, by
+the host compiler, into a hash directory of its own beside them.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -134,6 +138,54 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    return lib
+
+
+HOST_SOURCE = os.path.join(CSRC, "bn254_host.cpp")
+HOST_FLAGS = ["-O2", "-shared", "-fPIC"]
+
+
+def host_compiler() -> list[str] | None:
+    """The command that compiles host C++: g++ or c++ where there is one,
+    else nvcc driving its own host compiler; None where there is none."""
+    for name in ("g++", "c++"):
+        path = shutil.which(name)
+        if path:
+            return [path, *HOST_FLAGS]
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(nvcc):
+        return [nvcc, "-x", "c++", "-O2", "-shared", "-Xcompiler", "-fPIC"]
+    return None
+
+
+def build_host() -> str:
+    """Compile ``HOST_SOURCE`` (host C++, no device code) if its hash
+    directory lacks the library; returns the library's path.  A failed
+    compile raises with the compiler's output."""
+    cmd = host_compiler()
+    if cmd is None:
+        raise RuntimeError("no host C++ compiler (g++, c++ or nvcc) found")
+    # the hash covers the source, the flags and the compiler's version, so a
+    # library built by another toolchain is never loaded
+    version = subprocess.run([cmd[0], "--version"], capture_output=True,
+                             text=True).stdout
+    with open(HOST_SOURCE, "rb") as f:
+        tag = hashlib.sha256(f.read() + " ".join(cmd[1:]).encode()
+                             + version.encode()).hexdigest()[:16]
+    out_dir = os.path.join(BUILD_ROOT, "host_" + tag)
+    lib = os.path.join(out_dir, "libbn254_host.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(out_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    run = subprocess.run([*cmd, "-o", tmp, HOST_SOURCE], capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{' '.join(cmd)} failed on {HOST_SOURCE}:\n"
+                           f"{run.stdout}{run.stderr}")
+    os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
     return lib
 
 

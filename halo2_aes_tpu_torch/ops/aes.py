@@ -30,8 +30,14 @@ def expand_key(key):
 
     key: uint8[16] tensor -> (ks_pool int64[336], round_keys int64[11, 16])"""
     dev = key.device
-    sbox = _table("S_BOX", dev)
-    rcon = _table("ROUND_CONSTANTS", dev)
+    return expand_key_with(key, _table("S_BOX", dev), _table("ROUND_CONSTANTS", dev))
+
+
+def expand_key_with(key, sbox, rcon):
+    """``expand_key`` over the given S-box and round-constant tables (int64
+    tensors on the key's device); ``models/aes_mini.py`` passes the
+    GF(2^4) ones."""
+    dev = key.device
     key = key.to(torch.int64)
     rot_idx = torch.tensor([13, 14, 15, 12], device=dev)
     pool = [key]
@@ -60,9 +66,13 @@ def block_pool_batch(plaintexts, round_keys):
     plaintexts: (B, 16) uint8/int tensor; round_keys: (11, 16) ->
     int64 (B, 1360)."""
     dev = plaintexts.device
-    sbox = _table("S_BOX", dev)
-    mul2 = _table("MUL_BY_2", dev)
-    mul3 = _table("MUL_BY_3", dev)
+    return block_pool_batch_with(plaintexts, round_keys, _table("S_BOX", dev),
+                                 _table("MUL_BY_2", dev), _table("MUL_BY_3", dev))
+
+
+def block_pool_batch_with(plaintexts, round_keys, sbox, mul2, mul3):
+    """``block_pool_batch`` over the given S-box and GF multiply tables."""
+    dev = plaintexts.device
     shift_idx = _table("SHIFT_ROWS_IDX", dev)
     coeff = _table("MIX_MATRIX", dev)[None, None]          # (1, 1, m, j)
     pt = plaintexts.to(torch.int64)

@@ -22,6 +22,7 @@ FQ = F.FQ
 
 G1_X = 1
 G1_Y = 2
+B_COEFF = 3
 
 
 def identity(shape=(), device="cpu"):
@@ -108,6 +109,14 @@ def py_mul(p, k: int):
     return acc
 
 
+def py_is_on_curve(p) -> bool:
+    if p is None:
+        return True
+    x, y = p
+    q = FQ.modulus
+    return (y * y - x * x * x - B_COEFF) % q == 0
+
+
 def _jdouble(p, mod=FQ.modulus):
     """Jacobian doubling (dbl-2009-l, a = 0); None is the identity."""
     if p is None or p[1] == 0:
@@ -150,10 +159,18 @@ def _jadd(p, q, mod=FQ.modulus):
 
 def host_msm(points, scalars):
     """sum_i scalars[i] * points[i] on host (affine int pairs, None =
-    identity): bucket Pippenger in Jacobian coordinates over python
-    bigints, one inversion at the end.  The affine result is unique, so
-    it equals the reference's double-and-add fold."""
+    identity).  Routes through the native C++ library
+    (halo2_aes_tpu_torch.native, the verifier's hot path) on the native
+    host route; on the python route, a bucket Pippenger in Jacobian
+    coordinates over python bigints, one inversion at the end.  The
+    affine result is unique, so both equal the reference's
+    double-and-add fold."""
+    from halo2_aes_tpu_torch import native
+
     r = F.FR.modulus
+    if native.route() == "native":
+        return native.g1_msm(points, [int(s) % r for s in scalars])
+    native.CALLS["python"] += 1
     pairs = [((p[0], p[1], 1), int(s) % r) for p, s in zip(points, scalars)
              if p is not None and int(s) % r]
     if not pairs:

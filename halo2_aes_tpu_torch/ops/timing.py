@@ -1,11 +1,29 @@
-"""Timing on the card: the card's name and power limit, and CUDA-event
-times of a callable.  Used by ``chip_smoke.py`` and the probe scripts;
-nothing here falls back to the CPU."""
+"""Timing on the card: the card's name and power limit, CUDA-event
+times of a callable, and the device a command line runs on.  Used by
+``chip_smoke.py``, ``prove.py`` and the scripts; nothing here falls
+back to the CPU."""
 
 from __future__ import annotations
 
 import statistics
 import subprocess
+
+
+def resolve_device(name: str | None):
+    """The device of a command line's ``--device``: the one named, else
+    the first CUDA card.  Raises at once where none was named and there
+    is no card: an entry point runs on the card unless the caller asks
+    for the CPU."""
+    import torch
+
+    if name is not None:
+        return torch.device(name)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no --device was given and torch.cuda.is_available() is false: "
+            "this entry point runs on a CUDA card by default; pass "
+            "--device cpu to run on the CPU")
+    return torch.device("cuda", 0)
 
 
 def card_line() -> str:

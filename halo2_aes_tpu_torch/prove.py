@@ -6,11 +6,14 @@ Usage:
   python -m halo2_aes_tpu_torch.prove --k 17 --blocks 384 --sets 4 \
       --decrypt --expose-ciphertext --verify --device cuda
   python -m halo2_aes_tpu_torch.prove ... --backend kzg-gwc
+  python -m halo2_aes_tpu_torch.prove ... --backend ipa
   python -m halo2_aes_tpu_torch.prove --k 20 --sets 4 --blocks 3082 \
       --tagged --verify --device cuda --checkpoint-dir ckpt
 
-Blinding always comes from os.urandom; ``--seed`` seeds only the random
-AES key and plaintexts.  With ``--expose-ciphertext`` the verifier is
+``--device`` defaults to the first CUDA card; without a card the command
+raises at once unless ``--device cpu`` is given.  Blinding always comes
+from os.urandom; ``--seed`` seeds only the random AES key and
+plaintexts.  With ``--expose-ciphertext`` the verifier is
 given the public bytes (the ciphertext, or with ``--decrypt`` the
 recovered plaintext) from an oracle run apart from the witness.
 ``--checkpoint-dir`` saves each heavy prove phase there, so that a
@@ -30,16 +33,17 @@ import torch
 
 
 def run(k: int, n_sets: int, blocks: int, tagged: bool, do_verify: bool,
-        device: str, seed: int = 0, srs_cache: str | None = "ptau",
+        device: str | None = None, seed: int = 0, srs_cache: str | None = "ptau",
         expose_ciphertext: bool = False, decrypt: bool = False,
         backend: str = "kzg-shplonk", checkpoint_dir: str | None = None) -> dict:
     from halo2_aes_tpu_torch.backend import get_backend
     from halo2_aes_tpu_torch.backend import keygen as KG
     from halo2_aes_tpu_torch.circuit import witness
     from halo2_aes_tpu_torch.ops import aes
+    from halo2_aes_tpu_torch.ops.timing import resolve_device
 
     be = get_backend(backend)
-    dev = torch.device(device)
+    dev = resolve_device(device)
     timings = {}
 
     def timed(name, fn, *args, **kw):
@@ -97,7 +101,9 @@ def run(k: int, n_sets: int, blocks: int, tagged: bool, do_verify: bool,
             pub = pts_np if decrypt else aes.encrypt(
                 torch.as_tensor(pts_np), torch.as_tensor(key_np)).numpy()
             instances = [[int(v) for v in pub.reshape(-1)]]
-        timed("verify", be.verify, pk.vk, proof, instances=instances)
+        # the IPA verifier recomputes the folded basis point: it needs the basis
+        extra = {"srs": srs} if backend == "ipa" else {}
+        timed("verify", be.verify, pk.vk, proof, instances=instances, **extra)
         result["verified"] = True
     return result
 
@@ -111,8 +117,9 @@ def parser() -> argparse.ArgumentParser:
                     help="tagged-op lookup tables (the flagship layout)")
     ap.add_argument("--verify", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", required=True,
-                    help="torch device to prove on, e.g. cuda or cpu")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; without a card, "
+                         "pass --device cpu)")
     ap.add_argument("--expose-ciphertext", action="store_true",
                     help="expose the public bytes as an instance column "
                          "(ciphertext when encrypting, recovered plaintext "
@@ -121,8 +128,10 @@ def parser() -> argparse.ArgumentParser:
                     help="prove AES-128 DECRYPTION (models/aes128_dec.py; "
                          "its lookups are always tagged)")
     ap.add_argument("--backend", default="kzg-shplonk",
-                    choices=["kzg-shplonk", "kzg-gwc"],
-                    help="KZG with SHPLONK or GWC multiopen")
+                    choices=["kzg-shplonk", "kzg-gwc", "ipa"],
+                    help="proving system (backend.get_backend): KZG with "
+                         "SHPLONK or GWC multiopen, or the transparent "
+                         "pairing-free IPA system (backend/ipa.py)")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="save per-phase prove checkpoints here and resume "
                          "a crashed prove (backend/resume.py)")

@@ -1,43 +1,54 @@
-"""Write the golden K=6 proofs that the PyTorch port must reproduce.
+"""Write the golden proofs that the PyTorch port must reproduce.
 
-Runs the JAX reference package on the CPU: for each entry of
+Runs the JAX reference package on the CPU.  For each entry of
 ``GOLDEN_PROOFS`` in ``halo2_aes_tpu_torch/circuit/toys.py`` (the toy,
 tagged-toy and instance-toy circuits, built with the reference's
 ``circuit.ir``, proved with SHPLONK and field-ordered lookups, and the
 first two also with GWC and with packed lookup keys) it sets up the dev
-SRS, keygens, proves with the circuit's fixed seed and verifies.  The
-result, ``halo2_aes_tpu_torch/testdata/golden_k6.json``, holds per
-proof the seed, the prove options, the vk digest and the proof bytes as
-hex; it is committed so the port's tests never run the slow JAX prover.
+SRS, keygens, proves with the circuit's fixed seed and verifies; for each
+entry of ``GOLDEN_IPA_PROOFS`` it does the same with ``multiopen="ipa"``
+against the transparent basis ``ipa.setup(K, cache_dir=None)``.  The
+result, ``halo2_aes_tpu_torch/testdata/golden_k6.json``, holds per proof
+the seed, the prove options, the vk digest and the proof bytes as hex.
+``--mini`` writes ``golden_mini_k11.json`` instead: the mini-AES circuit
+of ``MINI_CONFIG`` proved with SHPLONK (the slowest entry by far).  Both
+files are committed so the port's tests never run the slow JAX prover.
+The script imports the reference package on purpose; it is no part of
+the port.
 
 Usage:
-  JAX_PLATFORMS=cpu python scripts/make_torch_golden.py
+  JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [--mini]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OUT = os.path.join(REPO, "halo2_aes_tpu_torch", "testdata", "golden_k6.json")
+TESTDATA = os.path.join(REPO, "halo2_aes_tpu_torch", "testdata")
+OUT = os.path.join(TESTDATA, "golden_k6.json")
+OUT_MINI = os.path.join(TESTDATA, "golden_mini_k11.json")
 
 
-def main() -> None:
-    sys.path.insert(0, REPO)
-    import jax
+def _dump(path: str, out: dict) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
 
-    jax.config.update("jax_platforms", "cpu")
-    from halo2_aes_tpu.ops import field
 
-    field.set_compact_graphs(True)
+def golden_k6() -> None:
+    from halo2_aes_tpu.backend import ipa as IPA
     from halo2_aes_tpu.backend import srs as SRS
     from halo2_aes_tpu.backend.keygen import keygen
     from halo2_aes_tpu.backend.prover import prove
     from halo2_aes_tpu.backend.verifier import verify
     from halo2_aes_tpu.circuit import ir
-    from halo2_aes_tpu_torch.circuit.toys import GOLDEN_PROOFS, K, TOYS
+    from halo2_aes_tpu_torch.circuit.toys import (GOLDEN_IPA_PROOFS,
+                                                  GOLDEN_PROOFS, K, TOYS)
 
     srs = SRS.setup(K, cache_dir=None)
     out = {"k": K}
@@ -54,10 +65,57 @@ def main() -> None:
         out[name] = {"seed": seed, **opts, "vk_digest": hex(pk.vk.digest),
                      "proof": proof.hex()}
         print(f"{name}: {len(proof)} bytes", flush=True)
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    with open(OUT, "w") as f:
-        json.dump(out, f, indent=1)
-        f.write("\n")
+    basis = IPA.setup(K, cache_dir=None)
+    for name, toy in GOLDEN_IPA_PROOFS.items():
+        build, seed, instances = TOYS[toy]
+        layout, values = build(ir)
+        pk = keygen(layout, basis)
+        proof = prove(pk, values, seed=seed, multiopen="ipa")
+        assert IPA.verify(pk.vk, proof, instances=instances, srs=basis)
+        out[name] = {"seed": seed, "multiopen": "ipa",
+                     "vk_digest": hex(pk.vk.digest), "proof": proof.hex()}
+        print(f"{name}: {len(proof)} bytes", flush=True)
+    _dump(OUT, out)
+
+
+def golden_mini() -> None:
+    import jax.numpy as jnp
+
+    from halo2_aes_tpu.backend import srs as SRS
+    from halo2_aes_tpu.backend.keygen import keygen
+    from halo2_aes_tpu.backend.prover import prove
+    from halo2_aes_tpu.backend.verifier import verify
+    from halo2_aes_tpu.circuit import witness
+    from halo2_aes_tpu.models import aes_mini as MINI
+    from halo2_aes_tpu_torch.circuit.toys import (MINI_CONFIG, MINI_PROVE_SEED,
+                                                  mini_inputs)
+
+    layout = MINI.compile_mini_circuit(MINI.MiniAesConfig(**MINI_CONFIG))
+    key, pts = mini_inputs()
+    values = witness.assemble_values(
+        layout, MINI.build_pool_mini(jnp.asarray(key), jnp.asarray(pts)))
+    pk = keygen(layout, SRS.setup(MINI_CONFIG["k"], cache_dir=None))
+    proof = prove(pk, values, seed=MINI_PROVE_SEED)
+    assert verify(pk.vk, proof)
+    _dump(OUT_MINI, {**MINI_CONFIG, "mini": {
+        "seed": MINI_PROVE_SEED, "vk_digest": hex(pk.vk.digest),
+        "proof": proof.hex()}})
+    print(f"mini: {len(proof)} bytes", flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mini", action="store_true",
+                    help="write the mini-AES k=11 golden proof instead")
+    args = ap.parse_args()
+    sys.path.insert(0, REPO)
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from halo2_aes_tpu.ops import field
+
+    field.set_compact_graphs(True)
+    golden_mini() if args.mini else golden_k6()
 
 
 if __name__ == "__main__":

@@ -2,18 +2,19 @@
 """Time and profile the PyTorch port's flagship prove on one CUDA card.
 
   python3 scripts/profile_torch_flagship.py [--tree DIR] [--proves N]
-      [--variants shplonk,gwc,packed] [--phases] [--profile] [--out FILE]
+      [--variants shplonk,gwc,packed,ipa] [--phases] [--profile] [--out FILE]
 
 Builds the flagship (AES-128, k=17, 4 sets, 384 blocks, tagged ops),
 runs one warm-up prove per variant, then N rounds of timed proves, each
 round one prove of every variant in turn (``shplonk``: the default
-prove; ``gwc``: GWC multiopen; ``packed``: packed lookup keys), each
-reported with its kernel launch counts.  ``--phases`` times one more
-default prove round by round:
+prove; ``gwc``: GWC multiopen; ``packed``: packed lookup keys; ``ipa``:
+the IPA proving system, with a pk of its own against the transparent
+basis), each reported with its kernel launch counts.  ``--phases`` times
+one more prove of the first variant named, round by round:
 the device is synchronised at every Fiat-Shamir challenge, and each
 interval is named after the prover phase that ends there, with its
 peak device memory.
-``--profile`` runs one more prove under ``torch.profiler`` and reports
+``--profile`` runs one more such prove under ``torch.profiler`` and reports
 device time and launches by kernel name, and device time over the
 profiled wall.  ``--tree`` imports ``halo2_aes_tpu_torch`` from another
 checkout (default: this one), so two trees can be timed on one card in
@@ -34,7 +35,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = dict(k=17, n_sets=4, n_blocks=384, tagged_ops=True)
 
 VARIANTS = {"shplonk": {}, "gwc": {"multiopen": "gwc"},
-            "packed": {"lookup_sort": "packed"}}
+            "packed": {"lookup_sort": "packed"}, "ipa": {"multiopen": "ipa"}}
 
 
 def launches():
@@ -87,18 +88,25 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     layout = compile_circuit(AesConfig(**FLAGSHIP))
-    pk = KG.keygen(layout, SRS.setup(FLAGSHIP["k"], dev, cache_dir=None))
+    names = args.variants.split(",")
+    kzg_pk = ipa_pk = None
+    if set(names) - {"ipa"}:
+        kzg_pk = KG.keygen(layout, SRS.setup(FLAGSHIP["k"], dev, cache_dir=None))
+    if "ipa" in names:
+        from halo2_aes_tpu_torch.backend import ipa as IPA
+
+        ipa_pk = KG.keygen(layout, IPA.setup(FLAGSHIP["k"], dev, cache_dir=None))
+    pks = {v: ipa_pk if v == "ipa" else kzg_pk for v in names}
     rng = np.random.default_rng(0)
     key = torch.as_tensor(rng.integers(0, 256, 16, dtype=np.uint8), device=dev)
     pts = torch.as_tensor(rng.integers(0, 256, (FLAGSHIP["n_blocks"], 16),
                                        dtype=np.uint8), device=dev)
     values = witness.assemble_values(layout, witness.build_pool(key, pts))
-    names = args.variants.split(",")
-    first = {v: timed_prove(PV, pk, values, dev, **VARIANTS[v])[0] for v in names}
+    first = {v: timed_prove(PV, pks[v], values, dev, **VARIANTS[v])[0] for v in names}
     runs = {v: [] for v in names}
     for _ in range(args.proves):
         for v in names:
-            runs[v].append(timed_prove(PV, pk, values, dev, **VARIANTS[v]))
+            runs[v].append(timed_prove(PV, pks[v], values, dev, **VARIANTS[v]))
     variants = {v: {"first_prove_s": first[v], "prove_s": [s for s, _ in runs[v]],
                     "median_prove_s": float(np.median([s for s, _ in runs[v]]))
                     if runs[v] else None,
@@ -106,11 +114,13 @@ def main() -> int:
                 for v in names}
     out = {"tree": os.path.relpath(os.path.abspath(args.tree), REPO),
            "card": card, **FLAGSHIP, **variants[names[0]], "variants": variants}
+    def one_more():
+        return PV.prove(pks[names[0]], values, **VARIANTS[names[0]])
+
     if args.phases:
-        out["phases_s"], out["phase_peak_bytes"] = phase_prove(
-            lambda: PV.prove(pk, values), dev)
+        out["phases_s"], out["phase_peak_bytes"] = phase_prove(one_more, dev)
     if args.profile:
-        out["profile"] = profiled_prove(lambda: PV.prove(pk, values), dev)
+        out["profile"] = profiled_prove(one_more, dev)
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

@@ -26,8 +26,9 @@ def main() -> int:
     ap.add_argument("k", type=int, nargs="?", default=17)
     ap.add_argument("sets", type=int, nargs="?", default=1)
     ap.add_argument("--tagged", action="store_true")
-    ap.add_argument("--device", required=True,
-                    help="torch device to prove on, e.g. cuda or cpu")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; without a card, "
+                         "pass --device cpu)")
     args = ap.parse_args()
 
     import numpy as np
@@ -38,8 +39,9 @@ def main() -> int:
     from halo2_aes_tpu_torch.backend.keygen import keygen_cached
     from halo2_aes_tpu_torch.models.aes128 import (AesConfig, capacities,
                                                     compile_circuit, configure)
+    from halo2_aes_tpu_torch.ops.timing import resolve_device
 
-    dev = torch.device(args.device)
+    dev = resolve_device(args.device)
 
     def sync():
         if dev.type == "cuda":

@@ -106,7 +106,9 @@ def run(device: str, log2n: int = 17, reps: int = 5) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", required=True, help="the CUDA device, e.g. cuda")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; without a card, "
+                         "pass --device cpu)")
     ap.add_argument("--log2n", type=int, default=17)
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
@@ -114,10 +116,10 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA card: the probe measures the card only")
-    from halo2_aes_tpu_torch.ops.timing import card_line
+    from halo2_aes_tpu_torch.ops.timing import card_line, resolve_device
 
     print(card_line(), flush=True)
-    for rec in run(args.device, args.log2n, args.reps):
+    for rec in run(str(resolve_device(args.device)), args.log2n, args.reps):
         print(json.dumps(rec), flush=True)
     return 0
 

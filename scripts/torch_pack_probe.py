@@ -109,16 +109,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("log2n", type=int, nargs="?", default=17)
     ap.add_argument("reps", type=int, nargs="?", default=5)
-    ap.add_argument("--device", required=True, help="the CUDA device, e.g. cuda")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; without a card, "
+                         "pass --device cpu)")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA card: the probe measures the card only")
-    from halo2_aes_tpu_torch.ops.timing import card_line
+    from halo2_aes_tpu_torch.ops.timing import card_line, resolve_device
 
     print(card_line(), flush=True)
-    for rec in run(args.device, args.log2n, args.reps):
+    for rec in run(str(resolve_device(args.device)), args.log2n, args.reps):
         print(json.dumps(rec), flush=True)
     return 0
 

@@ -17,12 +17,14 @@ import time
 # each one closes; a challenge squeezed right after another closes nothing
 PHASE_AT = {"theta": "advice", "beta": "lookup_permuted", "gamma": None,
             "y": "grand_products", "x": "quotient", "y2": "evals", "v": None,
-            "u": "shplonk_h", "finalize": "shplonk_l"}
+            "u": "shplonk_h", "finalize": "shplonk_l",
+            # an IPA prove squeezes k more challenges, one a halving round
+            "round": "ipa_rounds"}
 CHALLENGES = ["theta", "beta", "gamma", "y", "x", "y2", "v", "u"]
 
 
 def phase_prove(prove, device) -> tuple[dict, dict]:
-    """Run ``prove()`` (a SHPLONK prove) with the device synchronised at
+    """Run ``prove()`` (a SHPLONK or IPA prove) with the device synchronised at
     every transcript challenge.  Returns ({phase: seconds}, {phase: peak
     device bytes allocated within it}); each interval is named after the
     prover phase that ends there."""
@@ -40,7 +42,8 @@ def phase_prove(prove, device) -> tuple[dict, dict]:
         torch.cuda.reset_peak_memory_stats(device)
 
     def hooked_squeeze(self):
-        mark(CHALLENGES[len(marks) - 1])
+        i = len(marks) - 1
+        mark(CHALLENGES[i] if i < len(CHALLENGES) else "round")
         return squeeze(self)
 
     def hooked_finalize(self):
@@ -57,7 +60,8 @@ def phase_prove(prove, device) -> tuple[dict, dict]:
         TranscriptWriter.finalize = finalize
     seconds, peaks, current = {}, {}, None
     for (_, t_prev, _), (label, t, peak) in zip(marks, marks[1:]):
-        current = PHASE_AT[label] or current
+        if not (label == "finalize" and current == "ipa_rounds"):
+            current = PHASE_AT[label] or current
         seconds[current] = seconds.get(current, 0.0) + t - t_prev
         peaks[current] = max(peaks.get(current, 0), peak)
     return seconds, peaks

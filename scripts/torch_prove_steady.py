@@ -88,8 +88,9 @@ def main() -> int:
     ap.add_argument("--tagged", action="store_true",
                     help="tagged-op lookup tables (the flagship layout)")
     ap.add_argument("--lookup-sort", default="field", choices=["field", "packed"])
-    ap.add_argument("--device", required=True,
-                    help="torch device to prove on, e.g. cuda or cpu")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; without a card, "
+                         "pass --device cpu)")
     ap.add_argument("--tables", action="store_true")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--static-compare", type=int, default=0, metavar="N")
@@ -112,8 +113,9 @@ def main() -> int:
     from halo2_aes_tpu_torch.circuit import witness
     from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
     from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_ntt
+    from halo2_aes_tpu_torch.ops.timing import resolve_device
 
-    dev = torch.device(args.device)
+    dev = resolve_device(args.device)
     cuda = dev.type == "cuda"
     out = {"tree": os.path.relpath(os.path.abspath(args.tree), REPO),
            "k": args.k, "blocks": args.blocks, "sets": args.sets,

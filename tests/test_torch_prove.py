@@ -155,13 +155,13 @@ def test_bad_witness_rejected(keys):
 
 
 def test_unported_options_raise(keys, monkeypatch):
-    """mesh proving, the IPA backend and a k above the port's bound
-    raise NotImplementedError."""
+    """mesh proving and a k above the port's bound raise
+    NotImplementedError; an unknown multiopen is a ValueError."""
     _, _, _, values, pk, _ = keys
     with pytest.raises(NotImplementedError):
         prover.prove(pk, values, seed=0, mesh=object())
-    with pytest.raises(NotImplementedError):
-        get_backend("ipa")
+    with pytest.raises(ValueError, match="unknown multiopen"):
+        prover.prove(pk, values, seed=0, multiopen="fri")
     monkeypatch.setattr(prover, "MAX_K", K - 1)
     with pytest.raises(NotImplementedError, match=f"k={K} > {K - 1}"):
         prover.prove(pk, values, seed=0)
@@ -220,8 +220,26 @@ def test_cli_parses_decrypt_expose_and_gwc():
          "--expose-ciphertext", "--backend", "kzg-gwc", "--device", "cuda"])
     assert (args.decrypt, args.expose_ciphertext, args.backend) == (
         True, True, "kzg-gwc")
+    assert cli.parser().parse_args(["--backend", "ipa"]).backend == "ipa"
     with pytest.raises(SystemExit):
-        cli.parser().parse_args(["--backend", "ipa", "--device", "cuda"])
+        cli.parser().parse_args(["--backend", "fri", "--device", "cuda"])
+
+
+def test_cli_device_defaults_to_the_card(monkeypatch):
+    """No ``--device``: the first CUDA card, and at once an error that
+    says why where there is none; a named device is taken as it is."""
+    from halo2_aes_tpu_torch import prove as cli
+    from halo2_aes_tpu_torch.ops.timing import resolve_device
+
+    assert cli.parser().parse_args([]).device is None
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available.. is false"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.run(17, 1, 1, False, False, None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda", 0)
 
 
 def test_cli_parses_checkpoint_dir():
