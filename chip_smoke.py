@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one CUDA card.
 
-  python3 chip_smoke.py [golden,mock,ipa,mini,srs_format]
+  python3 chip_smoke.py [golden,mock,ipa,mini,srs_format,mesh]
 
 With no argument every phase runs; with a comma-separated list only the
 device and build phases and the named ones do, and no ok line is printed.
@@ -32,6 +32,22 @@ Phases, each printing one JSON line as it ends:
                 P2 Montgomery layouts against K1)
   6 gwc_packed  on the flagship pk: one GWC prove and one packed-lookup
                 prove, each verified and a flipped byte rejected
+    mesh        the multi-device prover (halo2_aes_tpu_torch/parallel/):
+                (a) a mesh of world size 1 over NCCL in this process
+                (file store under build/; no NCCL fails the phase): the
+                flagship proved on the mesh equals the one-device proof
+                byte for byte, verifies, a flipped byte is rejected, K1,
+                K2 and K3 launched on the mesh path; a seed=None mesh
+                proof verifies; a two-chunk CTR bundle proved on the
+                mesh passes verify_bundle; warm mesh and plain proves
+                timed in turns (medians of 3), collective calls and
+                bytes per prove, peak memory;  (b) two rank processes
+                sharing cuda:0 over gloo (CUDA tensors staged through
+                host memory): the toy, tagged and instance golden proofs
+                and the mini-AES golden proof on the mesh, and beside
+                them dryrun_multichip(2) (sharded mock counts, NTT round
+                trip, toy prove); each rank launched K2 and K3 at its
+                sharded shapes; a rank's failure or timeout fails the phase
   7 ctr         a two-chunk (768-block) AES-CTR bundle at the flagship
                 width with the keystream exposed: keystream = AES of the
                 counter blocks, one verify_batch accepts the bundle, a
@@ -70,7 +86,7 @@ Phases, each printing one JSON line as it ends:
                 the flagship proof verified again through the pure-Python
                 route gives the same verdicts (valid and flipped byte),
                 with the seconds of each route
-Phases 4, 5-8, the k=20 prove of 9 and 11 each set the launch counts to 0
+Phases 4, 5-8, mesh, the k=20 prove of 9 and 11 each set the launch counts to 0
 before they drive their path and fail if a kernel of the path never
 launched.  Then the card line, the kernels record and, last, the ok
 line.  Any failure raises and the exit code is non-zero.
@@ -850,6 +866,112 @@ def phase_gwc_packed(pk, values) -> None:
     emit({"phase": "gwc_packed", **rec})
 
 
+def phase_mesh(pk, values, dev) -> dict:
+    """The multi-device prover: (a) world size 1 over NCCL in this
+    process at the flagship; (b) two rank processes on cuda:0 over gloo.
+    Returns the launch counts of (a)'s last warm mesh prove."""
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from halo2_aes_tpu_torch import ctr
+    from halo2_aes_tpu_torch.backend import keygen as KG
+    from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.backend import verifier as VF
+    from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
+    from halo2_aes_tpu_torch.parallel import comm
+    from halo2_aes_tpu_torch.parallel import dryrun as DR
+
+    root = os.path.join(REPO, "build", "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    seed = 7
+    mesh = comm.init_mesh("nccl", 0, 1, f"file://{root}/store", dev, timeout=300)
+    try:
+        plain = PV.prove(pk, values, seed=seed)
+        reset_counts()
+        comm.reset_counts()
+        proof = PV.prove(pk, values, seed=seed, mesh=mesh)
+        torch.cuda.synchronize()
+        first = {"launches": read_counts(), "calls": dict(comm.CALLS),
+                 "bytes": dict(comm.BYTES)}
+        require_launched("mesh", first["launches"], PATH_KERNELS)
+        if proof != plain:
+            raise AssertionError("mesh: the world-size-1 proof differs from the "
+                                 "one-device proof")
+        VF.verify(pk.vk, proof)
+        if not rejects_flipped_byte(lambda p: VF.verify(pk.vk, p), proof):
+            raise AssertionError("mesh: a proof with a flipped byte verified")
+        times = {"plain": [], "mesh": []}
+        for _ in range(3):
+            for label, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+                reset_counts()
+                comm.reset_counts()
+                t0 = time.perf_counter()
+                PV.prove(pk, values, seed=seed, **kw)
+                torch.cuda.synchronize()
+                times[label].append(time.perf_counter() - t0)
+        counts = read_counts()            # the last warm mesh prove's
+        require_launched("mesh", counts, PATH_KERNELS)
+        warm = {"calls": dict(comm.CALLS), "bytes": dict(comm.BYTES)}
+        free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        seedless = PV.prove(pk, values, mesh=mesh)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        VF.verify(pk.vk, seedless)
+        if seedless == plain:
+            raise AssertionError("mesh: a seed=None proof equals the seeded one")
+        cfg = dict(FLAGSHIP, expose_ciphertext=True)
+        ctr_pk = KG.keygen(compile_circuit(AesConfig(**cfg)), pk.srs)
+        key = np.frombuffer(bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c"),
+                            np.uint8)
+        bundle = ctr.prove_keystream(ctr_pk, key, bytes(range(12)),
+                                     2 * cfg["n_blocks"], mesh=mesh)
+        ctr.verify_bundle(ctr_pk.vk, bundle)
+        del ctr_pk, bundle
+    finally:
+        comm.destroy_mesh(mesh)
+    free()
+    world1 = {
+        "backend": "nccl", "world_size": 1, **FLAGSHIP,
+        "identical_to_one_device": True, "verified": True,
+        "flipped_byte_rejected": True, "seedless_verified": True,
+        "ctr_bundle_verified": True, "ctr_blocks": 2 * FLAGSHIP["n_blocks"],
+        "plain_prove_s": times["plain"], "mesh_prove_s": times["mesh"],
+        "plain_prove_median_s": statistics.median(times["plain"]),
+        "mesh_prove_median_s": statistics.median(times["mesh"]),
+        "first_mesh_prove": first, "collectives_per_warm_prove": warm,
+        "seedless_peak_mem_bytes": peak, "launches": counts}
+    # the golden proves' two ranks and the dry run's two run side by side
+    t0 = time.perf_counter()
+    ranks = comm.RankProcesses(
+        ["halo2_aes_tpu_torch.parallel.dryrun", "--backend", "gloo",
+         "--device", "cuda:0", "--task", "prove,mini",
+         "--proofs", "toy,tagged,instance"], 2, os.path.join(root, "ranks"))
+    try:
+        dry = DR.dryrun_multichip(2, backend="gloo", device="cuda:0", timeout=600)
+        dryrun_s = time.perf_counter() - t0
+        res = DR.rank_results(ranks.wait(600))
+        proves_s = time.perf_counter() - t0
+    finally:
+        ranks.kill()
+    for r in res + dry:
+        require_launched(f"mesh rank {r['rank']}", r["launches"], ("K2", "K3"))
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "mesh", "world1_nccl": world1, "world2_gloo_cuda0": {
+        "golden_identical": ["toy", "tagged", "instance", "mini"],
+        "proves_wall_s": proves_s, "launches": [r["launches"] for r in res],
+        "collectives": [r["collectives"] for r in res],
+        "dryrun_wall_s": dryrun_s,
+        "dryrun_mock_counts_corrupted": [r["results"]["dryrun"][
+            "mock_counts_corrupted"] for r in dry],
+        "dryrun_launches": [r["launches"] for r in dry]}})
+    return counts
+
+
 def phase_ctr(srs, dev) -> None:
     """Two chunks of AES-CTR keystream at the flagship width, exposed."""
     import numpy as np
@@ -1372,9 +1494,11 @@ def phase_native(vk, proof: bytes) -> None:
     emit({"phase": "native", **rec, "routes_agree": True})
 
 
-def kernels_record(rec: dict, counts: dict, ipa_counts: dict) -> dict:
+def kernels_record(rec: dict, counts: dict, ipa_counts: dict,
+                   mesh_counts: dict) -> dict:
     """One row per kernel and entry: the launches of the flagship path's
-    run (``ipa_launches``: of the IPA path's), and this run's error, times
+    run (``ipa_launches``: of the IPA path's; ``mesh_launches``: of the
+    world-size-1 mesh prove's), and this run's error, times
     and bound at the kernels phase's shapes.  No PyTorch call computes a BN254 Montgomery product, an NTT
     over Fr or a G1 addition, so ``library_ms`` is null throughout."""
     from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_ntt, cuda_probe
@@ -1397,6 +1521,7 @@ def kernels_record(rec: dict, counts: dict, ipa_counts: dict) -> dict:
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": counts[count_key],
                     "ipa_launches": ipa_counts[count_key],
+                    "mesh_launches": mesh_counts[count_key],
                     "max_abs_err": max(r["errors"].values()),
                     "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1427,8 +1552,13 @@ def main(only: str = "") -> int:
     if only:
         # development aid: some of the later phases alone (no ok line)
         for name in only.split(","):
-            {"golden": phase_golden, "mock": phase_mock, "ipa": phase_ipa,
-             "mini": phase_mini, "srs_format": phase_srs_format}[name](dev)
+            if name == "mesh":
+                _, pk, values, _ = phase_flagship(dev)
+                phase_mesh(pk, values, dev)
+                del pk, values
+            else:
+                {"golden": phase_golden, "mock": phase_mock, "ipa": phase_ipa,
+                 "mini": phase_mini, "srs_format": phase_srs_format}[name](dev)
             free()
         return 0
     rec = phase_kernels(dev)
@@ -1438,6 +1568,7 @@ def main(only: str = "") -> int:
     probe_counts = phase_probes(dev)
     counts.update({key: probe_counts[key] for key in PROBE_KERNELS})
     phase_gwc_packed(pk, values)
+    mesh_counts = phase_mesh(pk, values, dev)
     srs = pk.srs
     phase_ctr(srs, dev)
     free()
@@ -1457,7 +1588,7 @@ def main(only: str = "") -> int:
     free()
     phase_native(flagship_vk, flagship_proof)
     print(card_line(), flush=True)
-    emit(kernels_record(rec, counts, ipa_counts))
+    emit(kernels_record(rec, counts, ipa_counts, mesh_counts))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

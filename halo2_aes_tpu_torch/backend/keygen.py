@@ -24,6 +24,7 @@ from halo2_aes_tpu_torch.ops import curve as CV
 from halo2_aes_tpu_torch.ops import field as F
 from halo2_aes_tpu_torch.ops import msm as MSM
 from halo2_aes_tpu_torch.ops.ntt import domain, ntt_many
+from halo2_aes_tpu_torch.parallel import msm as PMSM
 
 FR = F.FR
 
@@ -70,12 +71,15 @@ class ProvingKey:
         return self.srs.device
 
 
-def commit_affine(srs: SRS, coeffs):
+def commit_affine(srs: SRS, coeffs, mesh=None):
     """Commit one coefficient poly -> affine point (plain ints) or None.
 
     Toy domains (n <= 512) fold on the host with python bigints, as the
     reference's keygen does; the affine result is the same point the
-    device MSM gives."""
+    device MSM gives.  With a ``mesh`` (parallel/comm.py) the sharded MSM
+    commits at every n, as the reference's mesh prover does."""
+    if mesh is not None:
+        return PMSM.commit(mesh, srs, coeffs)
     if srs.n <= 512:
         g1 = _srs_host_points(srs)
         scalars = FR.decode(coeffs)
@@ -86,11 +90,14 @@ def commit_affine(srs: SRS, coeffs):
 COMMIT_BATCH = 8
 
 
-def commit_many(srs: SRS, polys) -> list:
+def commit_many(srs: SRS, polys, mesh=None) -> list:
     """Commit a list of coefficient polys (each (m <= n, 16)) -> affine
     points in order.  Above the toy size they go through ``msm_many``
     up to COMMIT_BATCH at a time, so each tree level of the MSM is one
-    batched point add for the whole group."""
+    batched point add for the whole group.  With a ``mesh``, every group
+    is one sharded ``msm_many`` and one all-gather, at every n."""
+    if mesh is not None:
+        return PMSM.commit_many(mesh, srs, polys, COMMIT_BATCH)
     if srs.n <= 512 or len(polys) < 2:
         return [commit_affine(srs, p) for p in polys]
     srs.warm_tables()
@@ -114,6 +121,12 @@ def _srs_host_points(srs: SRS) -> list:
         pts = list(zip(xs, ys))
         object.__setattr__(srs, "_host_points", pts)
     return pts
+
+
+def srs_identity(srs: SRS) -> str:
+    """Short identity tag of an SRS (``SRS.identity_tag``): a cached pk
+    built for another tau is never taken for this one."""
+    return srs.identity_tag()
 
 
 def layout_fingerprint(layout: CompiledCircuit) -> str:

@@ -59,6 +59,15 @@ def apply_permutation(field_col, perm, blinding):
     return torch.cat([field_col[perm], blinding])
 
 
+def permuted_indices_field(a_std, s_std, usable: int):
+    """``permuted_indices_field_many`` for one lookup: (usable, 16)
+    STANDARD-form input and table columns -> (a_order, table_perm), each
+    (usable,) int64."""
+    a_order, t_perm = permuted_indices_field_many(a_std[:usable], s_std[:usable],
+                                                  1, usable)
+    return a_order[0], t_perm[0]
+
+
 def permuted_indices_field_many(a_std, s_std, L: int, usable: int):
     """Batched permuted-pair construction over L lookups.
 

@@ -24,6 +24,14 @@ def _shift_powers(k: int, inverse: bool, device):
     return F.powers_table(FR, base, 1 << k, device)
 
 
+def to_coeffs(dom: Domain, evals):
+    return ntt_many(dom, evals, 1, inverse=True)
+
+
+def to_evals(dom: Domain, coeffs):
+    return ntt_many(dom, coeffs, 1)
+
+
 def pad_coeffs(coeffs, n: int):
     m = coeffs.shape[0]
     if m == n:
@@ -42,6 +50,42 @@ def coset_interp(dom_ext: Domain, evals):
     """Inverse of coset_evals: coset evaluations -> coefficients."""
     c = ntt_many(dom_ext, evals, 1, inverse=True)
     return F.mont_mul(FR, c, _shift_powers(dom_ext.k, True, c.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _vanishing_inv_table(k: int, ext_k: int, device):
+    """(ratio, 16) Montgomery inverses of Z_H on the coset: Z_H(g w_ext^i)
+    = g^n w_ext^(n i) - 1 cycles with period ratio = 2^(ext_k - k)."""
+    p = FR.modulus
+    n = 1 << k
+    wn = pow(domain(FR, ext_k).omega, n, p)
+    acc = pow(GEN, n, p)
+    vals = []
+    for _ in range(1 << (ext_k - k)):
+        vals.append(pow(acc - 1, -1, p))
+        acc = acc * wn % p
+    return F.encode(FR, vals, device)
+
+
+def divide_by_vanishing(k: int, dom_ext: Domain, evals_ext):
+    """Pointwise divide coset evaluations by Z_H(X) = X^n - 1."""
+    table = _vanishing_inv_table(k, dom_ext.k, evals_ext.device)
+    ratio = table.shape[0]
+    return F.mont_mul(FR, evals_ext.reshape(-1, ratio, F.LIMBS),
+                      table).reshape(dom_ext.n, F.LIMBS)
+
+
+def rotate_ext(evals_ext, rot: int, ratio: int):
+    """Rotation by w^rot on the base domain = roll by rot*ratio on the
+    extended one."""
+    return torch.roll(evals_ext, -rot * ratio, 0) if rot else evals_ext
+
+
+def eval_at(coeffs, x: int):
+    """Evaluate one or many coefficient polys ((..., m, 16) Montgomery)
+    at the plain int x -> plain ints (read back to the host)."""
+    pw = F.limbs(FR.host_powers(x, coeffs.shape[-2]), coeffs.device)
+    return FR.decode(F.tree_sum(FR, F.mont_mul(FR, coeffs, pw), axis=-2))
 
 
 # --------------------------------------------------------------------------

@@ -33,6 +33,12 @@ equals its unsliced form bit for bit, so the proof bytes do not depend
 on the switch.  ``checkpoint_dir`` saves each of the phases advice,
 lookup, products and quotient (backend/resume.py); ``HALO2_SANITIZE=1``
 checks their outputs for canonical limbs (utils/sanitize.py).
+
+With a ``mesh`` (parallel/comm.py: one process per rank), every batched
+transform goes through the distributed four-step NTT
+(parallel/ntt.py) and every commitment, at every n, through the
+point-sharded MSM (parallel/msm.py); everything else runs replicated on
+each rank, which returns the one-device proof bytes.
 """
 
 from __future__ import annotations
@@ -54,6 +60,8 @@ from halo2_aes_tpu_torch.backend.transcript import TranscriptWriter
 from halo2_aes_tpu_torch.ops import curve as CV
 from halo2_aes_tpu_torch.ops import field as F
 from halo2_aes_tpu_torch.ops.ntt import domain, ntt_many
+from halo2_aes_tpu_torch.parallel import comm
+from halo2_aes_tpu_torch.parallel import ntt as PNTT
 from halo2_aes_tpu_torch.utils import sanitize as SAN
 
 FR = F.FR
@@ -230,10 +238,12 @@ def _coset_points(k: int, device):
 
 
 class _Phases:
-    """Per-pk phase functions and static plumbing (single device)."""
+    """Per-pk phase functions and static plumbing; with a ``mesh`` the
+    batched transforms are distributed (``_ntt_many``)."""
 
-    def __init__(self, pk: ProvingKey):
+    def __init__(self, pk: ProvingKey, mesh=None):
         self.pk = pk
+        self.mesh = mesh
         vk = pk.vk
         cs = vk.cs
         layout = pk.layout
@@ -289,8 +299,11 @@ class _Phases:
         return F.encode(FR, v, self.dev)
 
     def _ntt_many(self, flat, count: int, inverse: bool, shift_pows=None):
-        return ntt_many(self.dom, flat, count, inverse=inverse,
-                        shift_pows=shift_pows)
+        if self.mesh is None:
+            return ntt_many(self.dom, flat, count, inverse=inverse,
+                            shift_pows=shift_pows)
+        return PNTT.ntt_sharded_many(self.mesh, self.dom, flat, count,
+                                     inverse=inverse, shift_pows=shift_pows)
 
     def _column_ctx(self, all_fld, theta_m):
         n = self.n
@@ -736,12 +749,17 @@ class _Phases:
     shplonk_l_large = shplonk_l
 
 
-def _get_phases(pk: ProvingKey) -> _Phases:
-    ph = getattr(pk, "_phases", None)
-    if ph is None:
-        ph = _Phases(pk)
-        pk._phases = ph
-    return ph
+def _get_phases(pk: ProvingKey, mesh=None) -> _Phases:
+    """The pk's phases for ``mesh`` (None: one device), built once.  The
+    lookup order is an argument of each prove, so it does not key the
+    cache (a second key would hold a second copy of the static sub-coset
+    evaluations)."""
+    cache = getattr(pk, "_phases", None)
+    if cache is None:
+        cache = pk._phases = {}
+    if mesh not in cache:
+        cache[mesh] = _Phases(pk, mesh)
+    return cache[mesh]
 
 
 def _stagger_blind_pieces(piece_pts, blinds, g1_extra):
@@ -762,11 +780,13 @@ def _stagger_blind_pieces(piece_pts, blinds, g1_extra):
 def _commit_pts(ph, flat, count):
     """Commit ``count`` size-n polys from a FLAT tensor -> affine points."""
     n = ph.n
-    return commit_many(ph.pk.srs, [flat[i * n:(i + 1) * n] for i in range(count)])
+    return commit_many(ph.pk.srs, [flat[i * n:(i + 1) * n] for i in range(count)],
+                       mesh=ph.mesh)
 
 
 def prove(pk: ProvingKey, values, instances=None, seed=None,
-          mesh=None, multiopen: str = "shplonk", lookup_sort: str = "field",
+          mesh=None, mesh_axis: str = comm.AXIS, multiopen: str = "shplonk",
+          lookup_sort: str = "field",
           checkpoint_dir: str | None = None) -> bytes:
     """values: (num_columns, n) int merged column matrix (tensor or numpy;
     moved to the pk's device).  instances: per instance column, a list
@@ -779,10 +799,24 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     by canonical field value) or "packed" (uint32 keys of byte-ranged
     columns; other proof bytes, the same argument).  ``checkpoint_dir``:
     save each heavy phase there and resume a crashed prove at the first
-    incomplete phase (backend/resume.py).  Single device and k <= MAX_K
-    only: ``mesh`` and larger k raise NotImplementedError."""
+    incomplete phase (backend/resume.py).  k above MAX_K raises
+    NotImplementedError.
+
+    ``mesh``: a ``parallel.comm.Mesh``; every rank calls ``prove`` with
+    the same arguments and gets the same bytes, those of the one-device
+    prove with the same seed.  ``mesh_axis`` names the mesh's axis (a
+    mesh here has one).  With ``seed=None`` rank 0 draws every blinding
+    value from os.urandom and broadcasts the bytes.  Checkpoints need
+    one writer: ``checkpoint_dir`` on a mesh of more than one rank raises
+    NotImplementedError.  IPA on a mesh shards the commitments before
+    the opening and runs the opening's rounds on each rank's device, as
+    the reference does."""
     if mesh is not None:
-        raise NotImplementedError("mesh proving is not ported (ROADMAP A15)")
+        if mesh_axis != mesh.axis:
+            raise ValueError(f"mesh axis {mesh_axis!r}; the mesh has {mesh.axis!r}")
+        if checkpoint_dir is not None and mesh.size > 1:
+            raise NotImplementedError(
+                "checkpoint_dir on a mesh of more than one rank")
     if multiopen not in ("shplonk", "gwc", "ipa"):
         raise ValueError(f"unknown multiopen {multiopen!r}")
     if lookup_sort not in ("field", "packed"):
@@ -796,11 +830,14 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
         for lk in pk.vk.cs.lookups:
             _check_lookup_packable(pk.layout, lk)
 
-    ph = _get_phases(pk)
+    ph = _get_phases(pk, mesh)
     vk, cs, layout = pk.vk, pk.vk.cs, pk.layout
     dev = ph.dev
     n, usable, bf = ph.n, ph.usable, ph.bf
     rng = None if seed is None else np.random.default_rng(seed)
+    ck_rng = rng                  # what a checkpoint saves and restores
+    if mesh is not None and seed is None:
+        rng = comm.RankZeroRandom(mesh)
     tr = TranscriptWriter()
     T = ph.tensor
     enc = ph.encode
@@ -836,7 +873,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
         """A loaded phase's tensors (on the device) and points; the RNG
         continues from the saved state."""
         arrays, pts, rng_state = st
-        RES.restore_rng(rng, rng_state)
+        RES.restore_rng(ck_rng, rng_state)
         return [T(arrays[name]) for name in names], pts
 
     # ---- phase 1: advice lift + blind + INTT + commits ----------------------
@@ -848,7 +885,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
         adv_pts = _commit_pts(ph, adv_coeffs, len(ph.adv_ids))
         if ck:
             ck.save("advice", {"all_fld": all_fld, "adv_coeffs": adv_coeffs,
-                               "inst_coeffs": inst_coeffs}, adv_pts, rng)
+                               "inst_coeffs": inst_coeffs}, adv_pts, ck_rng)
     else:
         (all_fld, adv_coeffs, inst_coeffs), adv_pts = restored(
             st, ("all_fld", "adv_coeffs", "inst_coeffs"))
@@ -871,14 +908,14 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
             for i in range(ph.n_lk):       # transcript order: a'_i, s'_i
                 polys += [lk_a_coeffs[i * n:(i + 1) * n],
                           lk_s_coeffs[i * n:(i + 1) * n]]
-            lk_pts = commit_many(pk.srs, polys)
+            lk_pts = commit_many(pk.srs, polys, mesh=mesh)
         else:
             lk_ap = lk_sp = lk_a_coeffs = lk_s_coeffs = empty
             lk_pts = []
         if ck:
             ck.save("lookup", {"lk_ap": lk_ap, "lk_sp": lk_sp,
                                "lk_a_coeffs": lk_a_coeffs,
-                               "lk_s_coeffs": lk_s_coeffs}, lk_pts, rng)
+                               "lk_s_coeffs": lk_s_coeffs}, lk_pts, ck_rng)
     else:
         (lk_ap, lk_sp, lk_a_coeffs, lk_s_coeffs), lk_pts = restored(
             st, ("lk_ap", "lk_sp", "lk_a_coeffs", "lk_s_coeffs"))
@@ -915,11 +952,11 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
             pk.srs,
             [z_perm_coeffs[t * n:(t + 1) * n] for t in range(ph.chunks)]
             + [lkz_coeffs[i * n:(i + 1) * n] for i in range(ph.n_lk)]
-            + [random_coeffs])
+            + [random_coeffs], mesh=mesh)
         if ck:
             ck.save("products", {"z_perm_coeffs": z_perm_coeffs,
                                  "lkz_coeffs": lkz_coeffs,
-                                 "random_coeffs": random_coeffs}, prod_pts, rng)
+                                 "random_coeffs": random_coeffs}, prod_pts, ck_rng)
     else:
         (z_perm_coeffs, lkz_coeffs, random_coeffs), prod_pts = restored(
             st, ("z_perm_coeffs", "lkz_coeffs", "random_coeffs"))
@@ -987,7 +1024,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
                                               pk.srs.g1_extra)
         if ck:
             ck.save("quotient", {"pieces": pieces, "qblinds": qb_limbs},
-                    piece_pts, rng)
+                    piece_pts, ck_rng)
     else:
         (pieces,), piece_pts = restored(st, ("pieces",))
         qb = st[0]["qblinds"]
@@ -1061,7 +1098,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
             stack = torch.cat([poly_coeffs(kk) for kk in keys])
             w = ph.gwc_witness(stack, T(vp), enc(ev), enc(rot_point(rot)))
             del stack
-            tr.write_point(commit_affine(pk.srs, w))
+            tr.write_point(commit_affine(pk.srs, w, mesh=mesh))
         if ck:
             ck.clear()
         return tr.finalize()
@@ -1120,7 +1157,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     h_shp = (ph.shplonk_h_large if large else ph.shplonk_h)(f_acc, zt_coeffs_m)
     if cn:
         h_shp = ph.hshp_blind_fix(h_shp, enc(x), enc(W_h * cn % FR.modulus))
-    tr.write_point(commit_affine(pk.srs, h_shp))
+    tr.write_point(commit_affine(pk.srs, h_shp, mesh=mesh))
 
     u = tr.squeeze_challenge()
     gn = pow(P.GEN, n, FR.modulus)
@@ -1167,7 +1204,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     q_w = ph.shplonk_l(
         poly_flat, T(svals_np), h_shp, enc(FR.modulus - zt_u),
         enc(const_corr), enc(u))
-    tr.write_point(commit_affine(pk.srs, q_w))
+    tr.write_point(commit_affine(pk.srs, q_w, mesh=mesh))
     if ck:
         ck.clear()
     return tr.finalize()

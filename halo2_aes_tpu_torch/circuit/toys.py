@@ -4,7 +4,9 @@ Each circuit function takes the ``circuit.ir`` module to build with, so the same
 definition yields the reference package's circuit (for the fixture
 script) and this package's circuit (for the tests and the chip smoke).
 The first two match the toy circuits of ``tests/test_prove_verify.py``;
-the third adds an instance column.
+the third adds an instance column; the last two have one advice column
+(every advice stack of their proves holds one poly), with and without a
+lookup.
 """
 
 from __future__ import annotations
@@ -137,10 +139,49 @@ def instance_toy_circuit(ir=None):
     return layout, values + fixed
 
 
+def onecol_circuit(ir=None, lookup: bool = False):
+    """ONE advice column ``a``: the gate q * (a * a - a[+1]) on rows 0
+    and 2, the copy a[2] == a[5] and, with ``lookup``, q_lk * a into the
+    range table 0..31 on rows 0..3.  Every advice stack of its prove
+    holds one poly.  Returns (layout, values)."""
+    if ir is None:
+        from halo2_aes_tpu_torch.circuit import ir
+    n = 1 << K
+    cs = ir.ConstraintSystem()
+    q = cs.fixed_column("q_sq")
+    if lookup:
+        q_lk = cs.fixed_column("q_lk")
+        t_in = cs.fixed_column("t_in")
+    a = cs.advice_column("a")
+    cs.create_gate("square", ir.Prod(ir.Ref(q), ir.Sum(
+        ir.Prod(ir.Ref(a), ir.Ref(a)), ir.Neg(ir.Ref(a, 1)))))
+    cs.enable_equality(a)
+    cols = 4 if lookup else 2
+    fixed = np.zeros((cols, n), dtype=np.uint32)
+    values = np.zeros((cols, n), dtype=np.uint32)
+    fixed[q, [0, 2]] = 1
+    values[a, :6] = [3, 9, 4, 16, 0, 4]
+    if lookup:
+        cs.add_lookup("range", [(ir.Prod(ir.Ref(q_lk), ir.Ref(a)), t_in)])
+        fixed[t_in, :32] = np.arange(32)
+        fixed[q_lk, :4] = 1
+    layout = ir.CompiledCircuit(
+        k=K, cs=cs, fixed=fixed, witness_map=np.full((cols, n), -1, np.int32),
+        copy_pairs=np.array([[a, 2, a, 5]], dtype=np.int32), pool_len=0)
+    return layout, values + fixed
+
+
+def onecol_lookup_circuit(ir=None):
+    """``onecol_circuit`` with its range lookup."""
+    return onecol_circuit(ir, lookup=True)
+
+
 # name -> (circuit function, prove seed, public instances); the first two
 # seeds are those of the reference's own round-trip tests
 TOYS = {"toy": (toy_circuit, 42, []), "tagged": (tagged_toy_circuit, 11, []),
-        "instance": (instance_toy_circuit, 7, [PUBLIC])}
+        "instance": (instance_toy_circuit, 7, [PUBLIC]),
+        "onecol": (onecol_circuit, 17, []),
+        "onecol_lookup": (onecol_lookup_circuit, 19, [])}
 
 # golden proof name -> (toy, prove options); the toys' own names prove
 # with the defaults (SHPLONK, field-ordered lookups)
@@ -150,6 +191,8 @@ GOLDEN_PROOFS = {
     "tagged_gwc": ("tagged", {"multiopen": "gwc"}),
     "toy_packed": ("toy", {"lookup_sort": "packed"}),
     "tagged_packed": ("tagged", {"lookup_sort": "packed"}),
+    "onecol_gwc": ("onecol", {"multiopen": "gwc"}),
+    "onecol_lookup_gwc": ("onecol_lookup", {"multiopen": "gwc"}),
 }
 
 # golden IPA proof name -> toy: proved with ``multiopen="ipa"`` and the

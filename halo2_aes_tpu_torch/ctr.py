@@ -52,12 +52,16 @@ class CtrBundle:
 
 
 def prove_keystream(pk, key, nonce: bytes, n_blocks: int, *, start: int = 0,
+                    mesh=None, mesh_axis: str = "dp",
+                    checkpoint_dir: str | None = None,
                     progress=None) -> CtrBundle:
     """Prove ``n_blocks`` keystream blocks under ``pk`` (an AES-128
     layout compiled with expose_ciphertext=True) on the pk's device; a
     final partial chunk is padded with extra counter blocks (proving
     surplus keystream is sound and keeps one layout for every proof).
-    ``progress(i, chunks)`` is called after each proof."""
+    ``mesh``, ``mesh_axis`` and ``checkpoint_dir`` go to every chunk's
+    ``prove`` (on a mesh every rank calls this and gets the same
+    bundle).  ``progress(i, chunks)`` is called after each proof."""
     from halo2_aes_tpu_torch.backend.prover import prove
     from halo2_aes_tpu_torch.circuit import witness
 
@@ -76,7 +80,8 @@ def prove_keystream(pk, key, nonce: bytes, n_blocks: int, *, start: int = 0,
         ctrs = counter_blocks(nonce, start + ci * bpp, bpp)
         values = witness.assemble_values(
             layout, witness.build_pool(key_t, torch.as_tensor(ctrs, device=dev)))
-        proofs.append(prove(pk, values))
+        proofs.append(prove(pk, values, mesh=mesh, mesh_axis=mesh_axis,
+                            checkpoint_dir=checkpoint_dir))
         ks_rows.append(values[inst_col, :bpp * 16].cpu().numpy()
                        .astype(np.uint8).reshape(bpp, 16))
         if progress is not None:

@@ -43,6 +43,12 @@ def route() -> str:
     return "native" if _compiler_exists() else "python"
 
 
+def available() -> bool:
+    """Whether the native route can be taken: a host compiler exists (a
+    build or self-test that then fails raises; nothing falls back)."""
+    return _compiler_exists()
+
+
 @functools.lru_cache(maxsize=1)
 def _compiler_exists() -> bool:
     from halo2_aes_tpu_torch.ops import _build

@@ -60,6 +60,16 @@ def expand_key_with(key, sbox, rcon):
     return torch.cat(pool), torch.stack(rks)
 
 
+def block_pool(plaintext, round_keys):
+    """The circuit trace of one AES-128 encryption: (16,) -> int64 (1360,)."""
+    return block_pool_batch(plaintext[None], round_keys)[0]
+
+
+def dec_block_pool(ciphertext, round_keys):
+    """The circuit trace of one AES-128 decryption: (16,) -> int64 (1360,)."""
+    return dec_block_pool_batch(ciphertext[None], round_keys)[0]
+
+
 def block_pool_batch(plaintexts, round_keys):
     """Full circuit traces of a batch of AES-128 encryptions.
 

@@ -139,12 +139,23 @@ def fold_plain(level, groups: int, m: int, depth: int):
 
 
 def masked_add_plain(p, q, index, mask):
-    """p + (mask ? q[index] : identity), broadcasting p."""
-    one = F.const(FQ, "one", index.device)
-    zero = torch.zeros_like(one)
-    node = [F.select(mask, t[index], i) for t, i in zip(q, (zero, one, zero))]
-    shape = node[0].shape
-    return add_plain([t.expand(shape) for t in p], node)
+    """p + (mask ? q[index] : identity), broadcasting p.  With Q the
+    identity (0 : 1 : 0) the complete formula reduces to (X*Y, Y*Y, Y*Z)
+    (every other term is a product with 0 or 1), so rows with a clear
+    mask take those three products and only the others the whole
+    formula: the same limbs as adding the identity, which the kernel
+    does."""
+    shape = (*index.shape, F.LIMBS)
+    X, Y, Z = (t.expand(shape) for t in p)
+    out = [t.clone() for t in _bmul_plain([(X, Y), (Y, Y), (Y, Z)])]
+    rows = torch.nonzero(mask.reshape(-1)).reshape(-1)
+    if rows.numel():
+        flat = [t.reshape(-1, F.LIMBS) for t in (X, Y, Z)]
+        full = add_plain([t[rows] for t in flat],
+                         [t[index.reshape(-1)[rows]] for t in q])
+        for o, f in zip(out, full):
+            o.reshape(-1, F.LIMBS)[rows] = f
+    return tuple(out)
 
 
 def _check(name: str, tensors) -> torch.device:

@@ -36,6 +36,14 @@ def affine_to_proj(xy):
     return (x, y, F.const(FQ, "one", x.device).expand(x.shape).clone())
 
 
+# the reference's name (from its Jacobian days; coordinates are projective)
+affine_to_jacobian = affine_to_proj
+
+
+def is_identity(p):
+    return F.is_zero(p[2])
+
+
 def neg(p):
     x, y, z = p
     return (x, F.neg(FQ, y), z)

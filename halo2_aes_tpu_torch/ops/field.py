@@ -374,6 +374,18 @@ def dot(spec: FieldSpec, a, b):
     return tree_sum(spec, mont_mul(spec, a, b), axis=0)
 
 
+def zeros(shape=(), device="cpu") -> torch.Tensor:
+    return torch.zeros((*shape, LIMBS), dtype=torch.int32, device=device)
+
+
+def eq(a, b):
+    return (a == b).all(dim=-1)
+
+
+def is_zero(a):
+    return (a == 0).all(dim=-1)
+
+
 def select(cond, a, b):
     """cond broadcastable over batch shape (no limb axis)."""
     return torch.where(cond[..., None], a, b)

@@ -161,6 +161,15 @@ def _window_sums(px, py, digs, c: int, n_real: int, tables=None, tbase=None):
     return CV.add(scaled, CV.neg(cur))
 
 
+def msm_host(points, scalars):
+    """Host oracle: sum of scalar multiples of affine int points, one
+    double-and-add each (python ints; for tests)."""
+    acc = None
+    for p, s in zip(points, scalars):
+        acc = CV.py_add(acc, CV.py_mul(p, int(s)))
+    return acc
+
+
 def build_tables(points, c: int):
     """Affine window tables T[w][i] = 2^{cw} * P_i as ONE interleaved
     (W*n, 32) int32 tensor (x limbs in [0,16), y in [16,32); window w at

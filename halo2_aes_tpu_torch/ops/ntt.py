@@ -128,6 +128,18 @@ class Domain:
         self.omega_inv = pow(self.omega, -1, p)
         self.n_inv = pow(self.n, -1, p)
 
+    @property
+    def bitrev(self) -> torch.Tensor:
+        """The bit-reversal permutation of 0..n-1 (CPU int64)."""
+        return torch.from_numpy(_bitrev(self.k))
+
+    def bitrev_flat(self, count: int) -> torch.Tensor:
+        """Bit-reversal gather indices for ``count`` polys stored FLAT
+        (count*n rows): the per-poly table offset by each poly's base."""
+        one = self.bitrev
+        return (one.repeat(count)
+                + torch.arange(count).repeat_interleave(self.n) * self.n)
+
     def omega_powers(self, device, count=None, inverse: bool = False):
         """[1, w, w^2, ...] table (count defaults to n) on ``device``."""
         base = self.omega_inv if inverse else self.omega
@@ -223,6 +235,11 @@ def ntt_many(dom: Domain, flat, count: int, inverse: bool = False,
 def coset_ntt(dom: Domain, coeffs, shift_powers):
     """Evaluate coeffs on the coset {shift * w^i}: distribute then NTT."""
     return ntt_flat(dom, coeffs, 1, shift_pows=shift_powers)
+
+
+def eval_poly(spec: F.FieldSpec, coeffs, x):
+    """Evaluate a coefficient-form poly at the point x ((16,) Montgomery)."""
+    return F.dot(spec, coeffs, F.powers(spec, x, coeffs.shape[0]))
 
 
 def coset_intt(dom: Domain, evals, shift_inv_powers):

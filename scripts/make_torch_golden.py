@@ -2,9 +2,11 @@
 
 Runs the JAX reference package on the CPU.  For each entry of
 ``GOLDEN_PROOFS`` in ``halo2_aes_tpu_torch/circuit/toys.py`` (the toy,
-tagged-toy and instance-toy circuits, built with the reference's
-``circuit.ir``, proved with SHPLONK and field-ordered lookups, and the
-first two also with GWC and with packed lookup keys) it sets up the dev
+tagged-toy and instance-toy circuits and the one-advice-column circuit
+with and without its lookup, built with the reference's ``circuit.ir``,
+proved with SHPLONK and field-ordered lookups; the toy and tagged toy
+also with GWC and with packed lookup keys, the one-column pair also
+with GWC) it sets up the dev
 SRS, keygens, proves with the circuit's fixed seed and verifies; for each
 entry of ``GOLDEN_IPA_PROOFS`` it does the same with ``multiopen="ipa"``
 against the transparent basis ``ipa.setup(K, cache_dir=None)``.  The
@@ -13,11 +15,13 @@ the seed, the prove options, the vk digest and the proof bytes as hex.
 ``--mini`` writes ``golden_mini_k11.json`` instead: the mini-AES circuit
 of ``MINI_CONFIG`` proved with SHPLONK (the slowest entry by far).  Both
 files are committed so the port's tests never run the slow JAX prover.
-The script imports the reference package on purpose; it is no part of
-the port.
+``--only NAME,...`` proves only the named entries and keeps the others
+of the existing file (one process compiles every proof, and XLA's CPU
+compiler can run out of memory maps after a dozen of them).  The script
+imports the reference package on purpose; it is no part of the port.
 
 Usage:
-  JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [--mini]
+  JAX_PLATFORMS=cpu python scripts/make_torch_golden.py [--mini] [--only NAMES]
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ def _dump(path: str, out: dict) -> None:
         f.write("\n")
 
 
-def golden_k6() -> None:
+def golden_k6(only=None) -> None:
     from halo2_aes_tpu.backend import ipa as IPA
     from halo2_aes_tpu.backend import srs as SRS
     from halo2_aes_tpu.backend.keygen import keygen
@@ -52,8 +56,13 @@ def golden_k6() -> None:
 
     srs = SRS.setup(K, cache_dir=None)
     out = {"k": K}
+    if only:
+        with open(OUT) as f:
+            out = json.load(f)
     pks = {}
     for name, (toy, opts) in GOLDEN_PROOFS.items():
+        if only and name not in only:
+            continue
         build, seed, instances = TOYS[toy]
         layout, values = build(ir)
         if toy not in pks:
@@ -65,8 +74,10 @@ def golden_k6() -> None:
         out[name] = {"seed": seed, **opts, "vk_digest": hex(pk.vk.digest),
                      "proof": proof.hex()}
         print(f"{name}: {len(proof)} bytes", flush=True)
-    basis = IPA.setup(K, cache_dir=None)
-    for name, toy in GOLDEN_IPA_PROOFS.items():
+    ipa = [name for name in GOLDEN_IPA_PROOFS if not only or name in only]
+    basis = IPA.setup(K, cache_dir=None) if ipa else None
+    for name in ipa:
+        toy = GOLDEN_IPA_PROOFS[name]
         build, seed, instances = TOYS[toy]
         layout, values = build(ir)
         pk = keygen(layout, basis)
@@ -107,6 +118,9 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mini", action="store_true",
                     help="write the mini-AES k=11 golden proof instead")
+    ap.add_argument("--only", default="",
+                    help="comma-separated entries to prove; the file keeps "
+                         "the others")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import jax
@@ -115,7 +129,10 @@ def main() -> None:
     from halo2_aes_tpu.ops import field
 
     field.set_compact_graphs(True)
-    golden_mini() if args.mini else golden_k6()
+    if args.mini:
+        golden_mini()
+    else:
+        golden_k6(set(filter(None, args.only.split(","))))
 
 
 if __name__ == "__main__":

@@ -2,14 +2,18 @@
 """Time and profile the PyTorch port's flagship prove on one CUDA card.
 
   python3 scripts/profile_torch_flagship.py [--tree DIR] [--proves N]
-      [--variants shplonk,gwc,packed,ipa] [--phases] [--profile] [--out FILE]
+      [--variants shplonk,gwc,packed,ipa,mesh] [--phases] [--profile]
+      [--out FILE]
 
 Builds the flagship (AES-128, k=17, 4 sets, 384 blocks, tagged ops),
 runs one warm-up prove per variant, then N rounds of timed proves, each
 round one prove of every variant in turn (``shplonk``: the default
 prove; ``gwc``: GWC multiopen; ``packed``: packed lookup keys; ``ipa``:
 the IPA proving system, with a pk of its own against the transparent
-basis), each reported with its kernel launch counts.  ``--phases`` times
+basis; ``mesh``: the default prove on a world-size-1 NCCL mesh of this
+process, ``parallel/``'s sharded transforms and commitments, with its
+collective calls and payload bytes), each reported with its kernel
+launch counts.  ``--phases`` times
 one more prove of the first variant named, round by round:
 the device is synchronised at every Fiat-Shamir challenge, and each
 interval is named after the prover phase that ends there, with its
@@ -35,7 +39,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = dict(k=17, n_sets=4, n_blocks=384, tagged_ops=True)
 
 VARIANTS = {"shplonk": {}, "gwc": {"multiopen": "gwc"},
-            "packed": {"lookup_sort": "packed"}, "ipa": {"multiopen": "ipa"}}
+            "packed": {"lookup_sort": "packed"}, "ipa": {"multiopen": "ipa"},
+            "mesh": {}}          # + mesh=, made when the variant is asked for
 
 
 def launches():
@@ -53,7 +58,14 @@ def timed_prove(PV, pk, values, dev, **opts):
     PV.prove(pk, values, **opts)
     torch.cuda.synchronize(dev)
     s = time.perf_counter() - t0
-    return s, {k: v - before[k] for k, v in launches().items()}
+    counts = {k: v - before[k] for k, v in launches().items()}
+    if "mesh" in opts:
+        from halo2_aes_tpu_torch.parallel import comm
+
+        counts["collectives"] = {"calls": dict(comm.CALLS),
+                                 "bytes": dict(comm.BYTES)}
+        comm.reset_counts()
+    return s, counts
 
 
 def main() -> int:
@@ -97,16 +109,27 @@ def main() -> int:
 
         ipa_pk = KG.keygen(layout, IPA.setup(FLAGSHIP["k"], dev, cache_dir=None))
     pks = {v: ipa_pk if v == "ipa" else kzg_pk for v in names}
+    opts = {v: dict(VARIANTS[v]) for v in names}
+    if "mesh" in names:
+        import shutil
+
+        from halo2_aes_tpu_torch.parallel import comm
+
+        store = os.path.join(REPO, "build", "profile_mesh")
+        shutil.rmtree(store, ignore_errors=True)
+        os.makedirs(store)
+        opts["mesh"]["mesh"] = comm.init_mesh("nccl", 0, 1,
+                                              f"file://{store}/store", dev)
     rng = np.random.default_rng(0)
     key = torch.as_tensor(rng.integers(0, 256, 16, dtype=np.uint8), device=dev)
     pts = torch.as_tensor(rng.integers(0, 256, (FLAGSHIP["n_blocks"], 16),
                                        dtype=np.uint8), device=dev)
     values = witness.assemble_values(layout, witness.build_pool(key, pts))
-    first = {v: timed_prove(PV, pks[v], values, dev, **VARIANTS[v])[0] for v in names}
+    first = {v: timed_prove(PV, pks[v], values, dev, **opts[v])[0] for v in names}
     runs = {v: [] for v in names}
     for _ in range(args.proves):
         for v in names:
-            runs[v].append(timed_prove(PV, pks[v], values, dev, **VARIANTS[v]))
+            runs[v].append(timed_prove(PV, pks[v], values, dev, **opts[v]))
     variants = {v: {"first_prove_s": first[v], "prove_s": [s for s, _ in runs[v]],
                     "median_prove_s": float(np.median([s for s, _ in runs[v]]))
                     if runs[v] else None,
@@ -115,12 +138,14 @@ def main() -> int:
     out = {"tree": os.path.relpath(os.path.abspath(args.tree), REPO),
            "card": card, **FLAGSHIP, **variants[names[0]], "variants": variants}
     def one_more():
-        return PV.prove(pks[names[0]], values, **VARIANTS[names[0]])
+        return PV.prove(pks[names[0]], values, **opts[names[0]])
 
     if args.phases:
         out["phases_s"], out["phase_peak_bytes"] = phase_prove(one_more, dev)
     if args.profile:
         out["profile"] = profiled_prove(one_more, dev)
+    if "mesh" in opts:
+        comm.destroy_mesh(opts["mesh"]["mesh"])
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

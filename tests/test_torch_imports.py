@@ -29,10 +29,12 @@ def _imported(tree):
 
 
 def test_package_has_modules():
-    assert len(MODULES) >= 49
+    assert len(MODULES) >= 54
     assert {"backend/ipa.py", "backend/srs_format.py", "circuit/mock.py",
             "models/aes_mini.py", "native/__init__.py", "utils/cost_model.py",
-            "utils/timers.py", "utils/layout_viz.py"} <= {
+            "utils/timers.py", "utils/layout_viz.py", "parallel/__init__.py",
+            "parallel/comm.py", "parallel/ntt.py", "parallel/msm.py",
+            "parallel/dryrun.py"} <= {
         str(p.relative_to(PKG)) for p in MODULES}
 
 
@@ -48,7 +50,8 @@ def test_port_scripts_found():
     assert {p.name for p in SCRIPTS} >= {
         "torch_mul_throughput_probe.py", "torch_pack_probe.py",
         "torch_ctr_sustained.py", "torch_bench_mock.py",
-        "torch_bench_criterion.py", "profile_torch_flagship.py"}
+        "torch_bench_criterion.py", "profile_torch_flagship.py",
+        "torch_multihost_demo.py"}
 
 
 @pytest.mark.parametrize("path", SCRIPTS, ids=lambda p: p.name)
@@ -61,3 +64,50 @@ def test_chip_smoke_imports_no_jax():
     path = PKG.parent / "chip_smoke.py"
     tree = ast.parse(path.read_text())
     assert not [m for m in _imported(tree) if m.split(".")[0] in FORBIDDEN]
+
+
+# reference files and public names with no counterpart on purpose (ROADMAP
+# section 1, "Not ported, on purpose"): MXU and Pallas modules (csrc/ and
+# ops/cuda_*.py replace the latter), the XLA compilation cache, the Pallas
+# entry and compile-economics switches; ``DeviceAlgebra`` is made per device
+# inside ``prover._device_algebra``
+NOT_PORTED_FILES = {"ops/mxu_field.py", "ops/pallas_curve.py",
+                    "ops/pallas_field.py", "ops/pallas_ntt.py", "utils/cache.py"}
+NOT_PORTED_NAMES = {"backend/prover.py": {"DeviceAlgebra", "DeviceAlgebra.const"},
+                    "backend/srs.py": {"SRS.evict_tables"},
+                    "ops/field.py": {"mont_mul_fast", "set_compact_graphs",
+                                     "set_pallas"}}
+REF = PKG.parent / "halo2_aes_tpu"
+
+
+def _public_names(path) -> set:
+    """Public top-level functions and classes, the classes' public
+    methods and lower-case module-level names (upper-case constants are
+    tuning knobs of one machine or the other)."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            if node.name.startswith("_"):
+                continue
+            out.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                out |= {f"{node.name}.{f.name}" for f in node.body
+                        if isinstance(f, ast.FunctionDef)
+                        and not f.name.startswith("_")}
+        elif isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)
+                    and not t.id.startswith("_") and t.id[0].islower()}
+    return out
+
+
+@pytest.mark.parametrize("path", sorted(REF.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(REF)))
+def test_reference_public_names_have_counterparts(path):
+    rel = str(path.relative_to(REF))
+    if rel in NOT_PORTED_FILES:
+        return
+    port = PKG / rel
+    assert port.exists(), f"{rel} has no counterpart"
+    missing = (_public_names(path) - _public_names(port)
+               - NOT_PORTED_NAMES.get(rel, set()))
+    assert not missing, f"{rel}: {sorted(missing)}"

@@ -20,13 +20,15 @@ from halo2_aes_tpu_torch.backend import convert, get_backend
 from halo2_aes_tpu_torch.backend import keygen, prover, srs, verifier
 from halo2_aes_tpu_torch.circuit.toys import GOLDEN_PROOFS, K, PUBLIC, TOYS
 from halo2_aes_tpu_torch.ops import field as F
+from halo2_aes_tpu_torch.parallel import comm
 
 torch.set_num_threads(1)
 GOLDEN = json.loads((pathlib.Path(__file__).resolve().parent.parent
                      / "halo2_aes_tpu_torch" / "testdata"
                      / "golden_k6.json").read_text())
-# (row, column, value) of one cell that breaks each toy's constraints
-BAD_CELL = {"toy": (6, 2, 6), "tagged": (6, 1, 10), "instance": (4, 0, 3)}
+# (column, row, value) of one cell that breaks each toy's constraints
+BAD_CELL = {"toy": (6, 2, 6), "tagged": (6, 1, 10), "instance": (4, 0, 3),
+            "onecol": (1, 1, 10), "onecol_lookup": (3, 1, 10)}
 VARIANTS = sorted(n for n in GOLDEN_PROOFS if GOLDEN_PROOFS[n][1])
 
 
@@ -155,11 +157,13 @@ def test_bad_witness_rejected(keys):
 
 
 def test_unported_options_raise(keys, monkeypatch):
-    """mesh proving and a k above the port's bound raise
-    NotImplementedError; an unknown multiopen is a ValueError."""
+    """Checkpoints on a mesh of more than one rank and a k above the
+    port's bound raise NotImplementedError; an unknown multiopen is a
+    ValueError."""
     _, _, _, values, pk, _ = keys
+    mesh = comm.Mesh(None, "gloo", 0, 2, torch.device("cpu"))
     with pytest.raises(NotImplementedError):
-        prover.prove(pk, values, seed=0, mesh=object())
+        prover.prove(pk, values, seed=0, mesh=mesh, checkpoint_dir="ck")
     with pytest.raises(ValueError, match="unknown multiopen"):
         prover.prove(pk, values, seed=0, multiopen="fri")
     monkeypatch.setattr(prover, "MAX_K", K - 1)
