@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one CUDA card.
 
-  python3 chip_smoke.py [golden,mock,ipa,mini,srs_format,mesh]
+  python3 chip_smoke.py [golden,mock,ipa,mini,srs_format,mesh,mxu]
 
 With no argument every phase runs; with a comma-separated list only the
 device and build phases and the named ones do, and no ok line is printed.
@@ -11,7 +11,8 @@ Phases, each printing one JSON line as it ends:
   1 build       nvcc-builds the kernels of csrc/ (K1 mont_mul, K2 the fused
                 NTT pass, K3 curve add / fold / masked add / doublings, P1
                 mul probe, P2a/P2b Montgomery probes on limb-major
-                planes), one nvcc per source in parallel, and the host
+                planes, K5 nibble products on the int8 tensor cores),
+                one nvcc per source in parallel, and the host
                 C++ library (the verifier's G1 MSM and pairing product),
                 which must pass its self-test and be the route in force
   2 kernels     each kernel and entry against its plain PyTorch version,
@@ -30,6 +31,14 @@ Phases, each printing one JSON line as it ends:
                 verify, a flipped byte rejected; every kernel launched
   5 probes      the two probe scripts' paths (P1 multiply throughput,
                 P2 Montgomery layouts against K1)
+    mxu         K5 (nibble products on the int8 tensor cores) against its
+                plain version, bit-exact, at every product shape of
+                FixedMul, DftMatmul(16) and ntt256 at a 2^17 batch and at
+                the accumulator edge (N = 32, all p-1; x 0xFFFF, B all
+                15), with times, bounds and torch._int_mm on the same
+                products; FixedMul against K1 for random and edge
+                operands; ntt256 against K2's ntt at k = 8; then the
+                nibble-product probe's path (scripts/torch_mxu_probe.py)
   6 gwc_packed  on the flagship pk: one GWC prove and one packed-lookup
                 prove, each verified and a flipped byte rejected
     mesh        the multi-device prover (halo2_aes_tpu_torch/parallel/):
@@ -86,7 +95,7 @@ Phases, each printing one JSON line as it ends:
                 the flagship proof verified again through the pure-Python
                 route gives the same verdicts (valid and flipped byte),
                 with the seconds of each route
-Phases 4, 5-8, mesh, the k=20 prove of 9 and 11 each set the launch counts to 0
+Phases 4, 5-8, mxu, mesh, the k=20 prove of 9 and 11 each set the launch counts to 0
 before they drive their path and fail if a kernel of the path never
 launched.  Then the card line, the kernels record and, last, the ok
 line.  Any failure raises and the exit code is non-zero.
@@ -718,9 +727,10 @@ PROBE_KERNELS = {"P1": "mul_probe", "P2a": "mont_mul_planes16",
 
 
 def reset_counts():
-    from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_ntt, cuda_probe
+    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_nibble, cuda_ntt,
+                                         cuda_probe)
 
-    for mod in (cuda_field, cuda_ntt, cuda_curve):
+    for mod in (cuda_field, cuda_ntt, cuda_curve, cuda_nibble):
         mod.LAUNCHES = 0
     for entry in cuda_curve.ENTRY_LAUNCHES:
         cuda_curve.ENTRY_LAUNCHES[entry] = 0
@@ -728,10 +738,11 @@ def reset_counts():
 
 
 def read_counts() -> dict:
-    from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_ntt, cuda_probe
+    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_nibble, cuda_ntt,
+                                         cuda_probe)
 
     out = {"K1": cuda_field.LAUNCHES, "K2": cuda_ntt.LAUNCHES,
-           "K3": cuda_curve.LAUNCHES}
+           "K3": cuda_curve.LAUNCHES, "K5": cuda_nibble.LAUNCHES}
     out.update({key: cuda_curve.ENTRY_LAUNCHES[name]
                 for key, name in K3_ENTRIES.items()})
     out.update({key: cuda_probe.LAUNCHES[name]
@@ -834,6 +845,115 @@ def phase_probes(dev) -> dict:
     emit({"phase": "probes", "mul_throughput": p1, "pack": p2,
           "launches": counts})
     return counts
+
+
+def _int_mm_pairs(x, B):
+    """``torch._int_mm`` operands for K5's product (the yardstick only):
+    pre-expanded nibbles and B, padded to multiples of 8, one pair a group."""
+    import torch
+
+    from halo2_aes_tpu_torch.ops import cuda_nibble
+
+    k, m = B.shape[1:]
+    kp, mp = -(-k // 8) * 8, -(-m // 8) * 8
+    a = torch.nn.functional.pad(cuda_nibble.nibbles(x), (0, kp - k))
+    b = torch.nn.functional.pad(B, (0, mp - m, 0, kp - k))
+    return [(a[i].contiguous(), b[i].contiguous()) for i in range(x.shape[0])]
+
+
+def phase_mxu(dev, log2n: int = 17):
+    """K5 against its plain version at every product shape of the probe's
+    paths (2^17 batch) and at the accumulator edge, bit-exact, with times,
+    bounds and ``torch._int_mm`` on the same products; FixedMul against
+    K1 and ntt256 against K2 on the card; then the probe's path with the
+    counts reset.  Returns (the K5 record, the path's launch counts)."""
+    import numpy as np
+    import torch
+
+    from halo2_aes_tpu_torch.ops import cuda_field, cuda_nibble
+    from halo2_aes_tpu_torch.ops import field as F
+    from halo2_aes_tpu_torch.ops import mxu_field as MX
+    from halo2_aes_tpu_torch.ops import ntt
+    from halo2_aes_tpu_torch.ops.timing import time_ms
+
+    probe = _script("torch_mxu_probe")
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    cases = probe.k5_cases(log2n, rng, dev)
+    path_cases = list(cases)
+    # the accumulator edge at N = 32: every x limb and every w entry p-1;
+    # and the worst case the kernel admits (x limbs 0xFFFF, B all 15)
+    p = F.FR.modulus
+    edge = MX.DftMatmul(F.FR, [[p - 1] * 32] * 32)
+    rows32 = (1 << log2n) // 32
+    cases["edge_dft32_p-1"] = (
+        F.limbs(np.tile(F.int_to_limbs(p - 1), (rows32, 32)), dev)[None],
+        MX._on(edge._dev, edge._W, dev), 127)
+    cases["edge_all15_2048x4064"] = (
+        torch.full((1, 256, 512), 0xFFFF, dtype=torch.int32, device=dev),
+        torch.full((1, 2048, 32 * 127), 15, dtype=torch.int8, device=dev), 127)
+    host_s = time.perf_counter() - t0
+    per, errors = {}, {}
+    for name, (x, B, block) in cases.items():
+        out = cuda_nibble.nibble_product(x, B, block)
+        e = int((out.to(torch.int64)
+                 - cuda_nibble.nibble_product_plain(x, B, block).to(torch.int64))
+                .abs().max().item())
+        if e:
+            raise AssertionError(f"K5 {name}: max abs err {e}")
+        errors[name] = e
+        pairs = _int_mm_pairs(x, B)
+        lib = [torch._int_mm(a, b) for a, b in pairs]
+        m = B.shape[-1]
+        lib_out = cuda_nibble.fold(torch.stack(lib)[..., :m].to(torch.int64), block or m)
+        per[name] = {
+            "shape": [list(x.shape), list(B.shape), block],
+            "max_out": int(out.max().item()),
+            "library_agrees": bool(torch.equal(lib_out, out)),
+            "ms": time_ms(lambda: cuda_nibble.nibble_product(x, B, block), 20),
+            "plain_ms": time_ms(
+                lambda: cuda_nibble.nibble_product_plain(x, B, block), 2, 3),
+            "library_ms": time_ms(lambda: [torch._int_mm(a, b) for a, b in pairs],
+                                  20),
+            **probe.k5_bound(x, B, block)}
+        del lib, lib_out, pairs
+    if per["edge_all15_2048x4064"]["max_out"] != 225 * 2048 * 4369:
+        raise AssertionError(f"K5 edge: {per['edge_all15_2048x4064']['max_out']}")
+    rec = {"errors": errors, "cases": per, "host_matrices_s": host_s,
+           "shape": "the five product shapes of the probe's paths at 2^17, summed"}
+    for key in ("ms", "plain_ms", "library_ms"):
+        rec[key] = sum(per[name][key] for name in path_cases)
+    rec.update(probe.bound(sum(per[name]["bytes"] for name in path_cases),
+                           sum(per[name]["macs"] for name in path_cases)))
+    del cases
+    # FixedMul against K1, and ntt256 against K2, on the card
+    a = probe.random_fr(1 << log2n, rng, dev)
+    a[:3] = F.limbs(F.ints_to_limbs_fast([0, 1, p - 1]), dev)
+    fixed = {}
+    for label, b in (("random", int.from_bytes(rng.bytes(32), "little") % p),
+                     ("0", 0), ("1", 1), ("p-1", p - 1),
+                     ("2^255 mod p", (1 << 255) % p)):
+        want = cuda_field.mont_mul(F.FR, a, F.limbs(F.int_to_limbs(b), dev))
+        fixed[label] = torch.equal(MX.FixedMul(F.FR, b)(a), want)
+    if not all(fixed.values()):
+        raise AssertionError(f"mxu: FixedMul differs from K1: {fixed}")
+    vectors = a.reshape(-1, 256, F.LIMBS)
+    dom = ntt.domain(F.FR, 8)
+    got = MX.ntt256(F.FR, vectors)
+    k2 = torch.equal(got, ntt.ntt_many(dom, vectors.reshape(-1, F.LIMBS),
+                                       vectors.shape[0]).reshape(vectors.shape))
+    k2 = k2 and torch.equal(got[0], ntt.ntt(dom, vectors[0]))
+    if not k2:
+        raise AssertionError("mxu: ntt256 differs from K2's ntt at k = 8")
+    # the probe's path, counted
+    reset_counts()
+    rows = probe.run(str(dev), log2n, 3)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require_launched("mxu", counts, ("K5",))
+    emit({"phase": "mxu", "k5": rec, "fixed_mul_equals_k1": fixed,
+          "ntt256_equals_k2": k2, "probe": rows, "launches": counts})
+    return rec, counts
 
 
 def phase_gwc_packed(pk, values) -> None:
@@ -1499,9 +1619,14 @@ def kernels_record(rec: dict, counts: dict, ipa_counts: dict,
     """One row per kernel and entry: the launches of the flagship path's
     run (``ipa_launches``: of the IPA path's; ``mesh_launches``: of the
     world-size-1 mesh prove's), and this run's error, times
-    and bound at the kernels phase's shapes.  No PyTorch call computes a BN254 Montgomery product, an NTT
-    over Fr or a G1 addition, so ``library_ms`` is null throughout."""
-    from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_ntt, cuda_probe
+    and bound at the kernels phase's shapes (K5: at the ``mxu`` phase's,
+    its launches those of the probe's path).  No PyTorch call computes a
+    BN254 Montgomery product, an NTT over Fr or a G1 addition, so
+    ``library_ms`` is null for K1-K3 and the probes; K5's is
+    ``torch._int_mm`` (cuBLASLt int8) on the same products, without the
+    fold."""
+    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_nibble, cuda_ntt,
+                                         cuda_probe)
 
     k3 = (cuda_curve.SOURCE, cuda_curve.REPLACES)
     rows = [("K1", "K1", "mont_mul", cuda_field.SOURCE, cuda_field.REPLACES),
@@ -1515,6 +1640,7 @@ def kernels_record(rec: dict, counts: dict, ipa_counts: dict,
              for key, name in PROBE_KERNELS.items()]
     rows.append(("P1_full", "P1", "mul_probe_full", cuda_probe.SOURCE["mul_probe"],
                  cuda_probe.REPLACES["mul_probe"]))
+    rows.append(("K5", "K5", "nibble_product", cuda_nibble.SOURCE, cuda_nibble.REPLACES))
     out = []
     for key, count_key, name, source, replaces in rows:
         r = rec[key]
@@ -1525,7 +1651,7 @@ def kernels_record(rec: dict, counts: dict, ipa_counts: dict,
                     "max_abs_err": max(r["errors"].values()),
                     "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                    "library_ms": None})
+                    "library_ms": r.get("library_ms")})
     return {"kernels": out}
 
 
@@ -1558,7 +1684,8 @@ def main(only: str = "") -> int:
                 del pk, values
             else:
                 {"golden": phase_golden, "mock": phase_mock, "ipa": phase_ipa,
-                 "mini": phase_mini, "srs_format": phase_srs_format}[name](dev)
+                 "mini": phase_mini, "srs_format": phase_srs_format,
+                 "mxu": phase_mxu}[name](dev)
             free()
         return 0
     rec = phase_kernels(dev)
@@ -1567,6 +1694,9 @@ def main(only: str = "") -> int:
     flagship_vk = pk.vk
     probe_counts = phase_probes(dev)
     counts.update({key: probe_counts[key] for key in PROBE_KERNELS})
+    rec["K5"], mxu_counts = phase_mxu(dev)
+    counts["K5"] = mxu_counts["K5"]
+    free()
     phase_gwc_packed(pk, values)
     mesh_counts = phase_mesh(pk, values, dev)
     srs = pk.srs

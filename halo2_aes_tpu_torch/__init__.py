@@ -10,7 +10,9 @@ mini-AES (``models/aes_mini.py``), ``.srs`` files
 verifier's host side is C++ (``native/``).  Plain tensor code is PyTorch; every
 Pallas TPU kernel of the reference is a hand-written CUDA kernel under
 ``csrc/`` (``ops/cuda_field.py``, ``ops/cuda_ntt.py``,
-``ops/cuda_curve.py``, and the probes' ``ops/cuda_probe.py``).
+``ops/cuda_curve.py``, and the probes' ``ops/cuda_probe.py``); the
+reference's nibble-matrix field path (``ops/mxu_field.py``) runs its
+int8 products on the tensor cores through ``ops/cuda_nibble.py``.
 
 Field elements cross every public function in the reference's layout:
 ``(..., 16)`` 16-bit limbs in Montgomery form (R = 2^256), stored as

@@ -172,22 +172,22 @@ def encode(spec: FieldSpec, xs, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _bit_tables(device):
-    pow2 = torch.tensor([1 << i for i in range(LIMBS)], dtype=torch.int64,
+def _bit_tables(device, m: int):
+    pow2 = torch.tensor([1 << i for i in range(m)], dtype=torch.int64,
                         device=device)
-    shifts = torch.arange(LIMBS + 1, dtype=torch.int64, device=device)
+    shifts = torch.arange(m + 1, dtype=torch.int64, device=device)
     return pow2, shifts
 
 
 def _resolve(gen, prop):
     """Carries into each limb from generate/propagate flags (bool
-    (..., 16), never both set on one limb).  Returns int64 (..., 17):
-    entry i is the carry into limb i, entry 16 the carry out.
+    (..., m), m <= 62, never both set on one limb).  Returns int64
+    (..., m + 1): entry i is the carry into limb i, entry m the carry out.
 
     With G, P the flag bitmasks, (G << 1) + P ripples every generated
     carry through the run of propagating limbs above it; XOR with P
     leaves exactly the carry-in bits."""
-    pow2, shifts = _bit_tables(gen.device)
+    pow2, shifts = _bit_tables(gen.device, gen.shape[-1])
     G = (gen.to(torch.int64) * pow2).sum(-1, keepdim=True)
     P = (prop.to(torch.int64) * pow2).sum(-1, keepdim=True)
     return (((G << 1) + P) ^ P) >> shifts & 1

@@ -29,12 +29,12 @@ def _imported(tree):
 
 
 def test_package_has_modules():
-    assert len(MODULES) >= 54
+    assert len(MODULES) >= 56
     assert {"backend/ipa.py", "backend/srs_format.py", "circuit/mock.py",
             "models/aes_mini.py", "native/__init__.py", "utils/cost_model.py",
             "utils/timers.py", "utils/layout_viz.py", "parallel/__init__.py",
             "parallel/comm.py", "parallel/ntt.py", "parallel/msm.py",
-            "parallel/dryrun.py"} <= {
+            "parallel/dryrun.py", "ops/mxu_field.py", "ops/cuda_nibble.py"} <= {
         str(p.relative_to(PKG)) for p in MODULES}
 
 
@@ -51,7 +51,7 @@ def test_port_scripts_found():
         "torch_mul_throughput_probe.py", "torch_pack_probe.py",
         "torch_ctr_sustained.py", "torch_bench_mock.py",
         "torch_bench_criterion.py", "profile_torch_flagship.py",
-        "torch_multihost_demo.py"}
+        "torch_multihost_demo.py", "torch_mxu_probe.py"}
 
 
 @pytest.mark.parametrize("path", SCRIPTS, ids=lambda p: p.name)
@@ -67,12 +67,12 @@ def test_chip_smoke_imports_no_jax():
 
 
 # reference files and public names with no counterpart on purpose (ROADMAP
-# section 1, "Not ported, on purpose"): MXU and Pallas modules (csrc/ and
-# ops/cuda_*.py replace the latter), the XLA compilation cache, the Pallas
+# section 1, "Not ported, on purpose"): the Pallas modules (csrc/ and
+# ops/cuda_*.py replace them), the XLA compilation cache, the Pallas
 # entry and compile-economics switches; ``DeviceAlgebra`` is made per device
 # inside ``prover._device_algebra``
-NOT_PORTED_FILES = {"ops/mxu_field.py", "ops/pallas_curve.py",
-                    "ops/pallas_field.py", "ops/pallas_ntt.py", "utils/cache.py"}
+NOT_PORTED_FILES = {"ops/pallas_curve.py", "ops/pallas_field.py",
+                    "ops/pallas_ntt.py", "utils/cache.py"}
 NOT_PORTED_NAMES = {"backend/prover.py": {"DeviceAlgebra", "DeviceAlgebra.const"},
                     "backend/srs.py": {"SRS.evict_tables"},
                     "ops/field.py": {"mont_mul_fast", "set_compact_graphs",
