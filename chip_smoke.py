@@ -31,14 +31,19 @@ Phases, each printing one JSON line as it ends:
                 verify, a flipped byte rejected; every kernel launched
   5 probes      the two probe scripts' paths (P1 multiply throughput,
                 P2 Montgomery layouts against K1)
-    mxu         K5 (nibble products on the int8 tensor cores) against its
-                plain version, bit-exact, at every product shape of
-                FixedMul, DftMatmul(16) and ntt256 at a 2^17 batch and at
-                the accumulator edge (N = 32, all p-1; x 0xFFFF, B all
-                15), with times, bounds and torch._int_mm on the same
-                products; FixedMul against K1 for random and edge
-                operands; ntt256 against K2's ntt at k = 8; then the
-                nibble-product probe's path (scripts/torch_mxu_probe.py)
+    mxu         K5 (nibble products on the int8 tensor cores, on B packed
+                once per operand) against its plain version, bit-exact,
+                at every product shape of FixedMul, DftMatmul(16) and
+                ntt256 at a 2^17 batch and at the accumulator edge (N =
+                32, all p-1; x 0xFFFF, B all 15, no fragment skipped),
+                with times, bounds and torch._int_mm on the same
+                products; its normalize entry (the carry in the
+                epilogue, with the addend) at the paths' four carry
+                sites, bit-exact and timed; FixedMul against K1 for
+                random and edge operands; ntt256 against K2's ntt at k =
+                8; the paths' device kernels per call under
+                torch.profiler with carry_norm_ks made to raise; then
+                the nibble-product probe's path (scripts/torch_mxu_probe.py)
   6 gwc_packed  on the flagship pk: one GWC prove and one packed-lookup
                 prove, each verified and a flipped byte rejected
     mesh        the multi-device prover (halo2_aes_tpu_torch/parallel/):
@@ -724,6 +729,7 @@ K3_ENTRIES = {"K3_add": "add", "K3_fold": "fold", "K3_masked": "masked_add",
 PATH_KERNELS = ("K1", "K2", "K3", *K3_ENTRIES)
 PROBE_KERNELS = {"P1": "mul_probe", "P2a": "mont_mul_planes16",
                  "P2b": "mont_mul_planes13"}
+K5_ENTRIES = {"K5_product": "product", "K5_normalize": "normalize"}
 
 
 def reset_counts():
@@ -734,6 +740,8 @@ def reset_counts():
         mod.LAUNCHES = 0
     for entry in cuda_curve.ENTRY_LAUNCHES:
         cuda_curve.ENTRY_LAUNCHES[entry] = 0
+    for entry in cuda_nibble.ENTRY_LAUNCHES:
+        cuda_nibble.ENTRY_LAUNCHES[entry] = 0
     cuda_probe.reset_counts()
 
 
@@ -747,6 +755,8 @@ def read_counts() -> dict:
                 for key, name in K3_ENTRIES.items()})
     out.update({key: cuda_probe.LAUNCHES[name]
                 for key, name in PROBE_KERNELS.items()})
+    out.update({key: cuda_nibble.ENTRY_LAUNCHES[name]
+                for key, name in K5_ENTRIES.items()})
     return out
 
 
@@ -861,12 +871,65 @@ def _int_mm_pairs(x, B):
     return [(a[i].contiguous(), b[i].contiguous()) for i in range(x.shape[0])]
 
 
+def _mxu_paths_without_torch_carry(dev, a, rng) -> dict:
+    """FixedMul, DftMatmul(16), BatchedDftMatmul (ntt256's stage 2) and
+    ntt256 on the card with ``carry_norm_ks`` made to raise, and the
+    device kernels one call of each launches (torch.profiler).  FixedMul
+    must launch K5 three times (its counter and the profile agree) and
+    its other kernels must be no more than ``F._cond_sub_p``'s own plus
+    four slices and casts: no int64 carry pass is left on the path."""
+    import torch
+
+    from halo2_aes_tpu_torch.ops import cuda_nibble
+    from halo2_aes_tpu_torch.ops import field as F
+    from halo2_aes_tpu_torch.ops import mxu_field as MX
+
+    probe = _script("torch_mxu_probe")
+    fixed = MX.FixedMul(F.FR, int.from_bytes(rng.bytes(32), "little") % F.FR.modulus)
+    dft = probe.dft16()
+    d2 = MX._ntt256_stages(F.FR)[1]
+    vectors = a.reshape(-1, 256, F.LIMBS)
+    calls = {"fixed_mul": lambda: fixed(a),
+             "dft_matmul16": lambda: dft(a.reshape(-1, 16, F.LIMBS)),
+             "batched_dft_ntt256_stage2": lambda: d2(vectors.reshape(-1, 16, 16, F.LIMBS)),
+             "ntt256": lambda: MX.ntt256(F.FR, vectors)}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("mxu: carry_norm_ks ran on a CUDA tensor")
+
+    saved, MX.carry_norm_ks = MX.carry_norm_ks, refuse
+    try:
+        before = cuda_nibble.ENTRY_LAUNCHES["normalize"]
+        calls["fixed_mul"]()
+        k5_fixed = cuda_nibble.ENTRY_LAUNCHES["normalize"] - before
+        kernels = {name: probe.device_kernels(fn) for name, fn in calls.items()}
+    finally:
+        MX.carry_norm_ks = saved
+    r = torch.zeros((a.shape[0], F.LIMBS), dtype=torch.int64, device=dev)
+    cond = sum(probe.device_kernels(lambda: F._cond_sub_p(F.FR, r)).values())
+    out = {}
+    for name, by_name in kernels.items():
+        k5 = sum(c for k, c in by_name.items() if "nibble_mma_kernel" in k)
+        out[name] = {"device_kernels": sum(by_name.values()), "k5": k5,
+                     "names": by_name}
+    fm = out["fixed_mul"]
+    if k5_fixed != 3 or fm["k5"] != 3 or fm["device_kernels"] > 3 + cond + 4:
+        raise AssertionError(f"mxu: FixedMul launched {fm['device_kernels']} device "
+                             f"kernels ({fm['k5']} K5 seen, {k5_fixed} counted; "
+                             f"_cond_sub_p alone {cond}): {fm['names']}")
+    out["cond_sub_p_kernels"] = cond
+    return out
+
+
 def phase_mxu(dev, log2n: int = 17):
-    """K5 against its plain version at every product shape of the probe's
+    """K5 against its plain versions at every product shape of the probe's
     paths (2^17 batch) and at the accumulator edge, bit-exact, with times,
-    bounds and ``torch._int_mm`` on the same products; FixedMul against
-    K1 and ntt256 against K2 on the card; then the probe's path with the
-    counts reset.  Returns (the K5 record, the path's launch counts)."""
+    bounds and ``torch._int_mm`` on the same products; its normalize entry
+    at the paths' four carry sites (with the addend), bit-exact, timed;
+    FixedMul against K1 and ntt256 against K2 on the card; the paths'
+    device kernels per call with no torch carry pass; then the probe's
+    path with the counts reset.  Returns (the K5 record, the path's launch
+    counts)."""
     import numpy as np
     import torch
 
@@ -888,14 +951,16 @@ def phase_mxu(dev, log2n: int = 17):
     rows32 = (1 << log2n) // 32
     cases["edge_dft32_p-1"] = (
         F.limbs(np.tile(F.int_to_limbs(p - 1), (rows32, 32)), dev)[None],
-        MX._on(edge._dev, edge._W, dev), 127)
+        MX._on(edge._dev, edge._W, dev, MX._COLS)[0], 127)
     cases["edge_all15_2048x4064"] = (
         torch.full((1, 256, 512), 0xFFFF, dtype=torch.int32, device=dev),
         torch.full((1, 2048, 32 * 127), 15, dtype=torch.int8, device=dev), 127)
+    packed = {name: cuda_nibble.pack(B, block) for name, (_, B, block) in cases.items()}
     host_s = time.perf_counter() - t0
     per, errors = {}, {}
     for name, (x, B, block) in cases.items():
-        out = cuda_nibble.nibble_product(x, B, block)
+        pk = packed[name]
+        out = cuda_nibble.nibble_product(x, B, block, pk)
         e = int((out.to(torch.int64)
                  - cuda_nibble.nibble_product_plain(x, B, block).to(torch.int64))
                 .abs().max().item())
@@ -906,11 +971,14 @@ def phase_mxu(dev, log2n: int = 17):
         lib = [torch._int_mm(a, b) for a, b in pairs]
         m = B.shape[-1]
         lib_out = cuda_nibble.fold(torch.stack(lib)[..., :m].to(torch.int64), block or m)
+        kept = cuda_nibble._kept(pk)
         per[name] = {
             "shape": [list(x.shape), list(B.shape), block],
             "max_out": int(out.max().item()),
             "library_agrees": bool(torch.equal(lib_out, out)),
-            "ms": time_ms(lambda: cuda_nibble.nibble_product(x, B, block), 20),
+            "fragments_kept": int(kept.sum().item()),
+            "fragments": kept.numel(),
+            "ms": time_ms(lambda: cuda_nibble.nibble_product(x, B, block, pk), 20),
             "plain_ms": time_ms(
                 lambda: cuda_nibble.nibble_product_plain(x, B, block), 2, 3),
             "library_ms": time_ms(lambda: [torch._int_mm(a, b) for a, b in pairs],
@@ -919,13 +987,55 @@ def phase_mxu(dev, log2n: int = 17):
         del lib, lib_out, pairs
     if per["edge_all15_2048x4064"]["max_out"] != 225 * 2048 * 4369:
         raise AssertionError(f"K5 edge: {per['edge_all15_2048x4064']['max_out']}")
-    rec = {"errors": errors, "cases": per, "host_matrices_s": host_s,
+    if per["edge_all15_2048x4064"]["fragments_kept"] != per["edge_all15_2048x4064"]["fragments"]:
+        raise AssertionError("K5 edge: a fragment of the all-15 B was skipped")
+    # the normalize entry at the paths' four carry sites, with the addend
+    normalize = {}
+    for name, (x, B, block, width, add) in probe.k5_normalize_cases(log2n, rng, dev).items():
+        pk = cuda_nibble.pack(B, block)
+        out = cuda_nibble.nibble_normalize(x, B, block, width, add, pk)
+        e = int((out.to(torch.int64) - cuda_nibble.nibble_normalize_plain(
+            x, B, block, width, add).to(torch.int64)).abs().max().item())
+        if e:
+            raise AssertionError(f"K5 normalize {name}: max abs err {e}")
+        errors[f"normalize_{name}"] = e
+        if add is not None:
+            # an addend entry outside 16 bits is taken mod 2^16 on the card
+            # as on the CPU
+            wild = torch.randint(-(1 << 31), (1 << 31) - 1, add.shape,
+                                 dtype=torch.int32, device=dev)
+            e = int((cuda_nibble.nibble_normalize(x, B, block, width, wild, pk)
+                     .to(torch.int64) - cuda_nibble.nibble_normalize_plain(
+                         x, B, block, width, wild).to(torch.int64)).abs().max().item())
+            if e:
+                raise AssertionError(f"K5 normalize {name}, addend mod 2^16: "
+                                     f"max abs err {e}")
+            errors[f"normalize_{name}_addend_mod_2^16"] = e
+            del wild
+        normalize[name] = {
+            "shape": [list(x.shape), list(B.shape), block, width,
+                      None if add is None else list(add.shape)],
+            "ms": time_ms(lambda: cuda_nibble.nibble_normalize(x, B, block, width,
+                                                               add, pk), 20),
+            "plain_ms": time_ms(lambda: cuda_nibble.nibble_normalize_plain(
+                x, B, block, width, add), 2, 3),
+            **probe.k5_bound(x, B, block, width, add)}
+    rec = {"errors": errors, "cases": per, "normalize": normalize,
+           "normalize_summed": {
+               "errors": {k: v for k, v in errors.items() if k.startswith("normalize_")},
+               "library_ms": None,
+               **{key: sum(r[key] for r in normalize.values())
+                  for key in ("ms", "plain_ms")},
+               **probe.bound(sum(r["bytes"] for r in normalize.values()),
+                             sum(r["macs"] for r in normalize.values()))},
+           "host_matrices_s": host_s,
            "shape": "the five product shapes of the probe's paths at 2^17, summed"}
     for key in ("ms", "plain_ms", "library_ms"):
         rec[key] = sum(per[name][key] for name in path_cases)
     rec.update(probe.bound(sum(per[name]["bytes"] for name in path_cases),
                            sum(per[name]["macs"] for name in path_cases)))
-    del cases
+    rec["share"] = rec["bound_ms"] / rec["ms"]
+    del cases, packed
     # FixedMul against K1, and ntt256 against K2, on the card
     a = probe.random_fr(1 << log2n, rng, dev)
     a[:3] = F.limbs(F.ints_to_limbs_fast([0, 1, p - 1]), dev)
@@ -945,14 +1055,16 @@ def phase_mxu(dev, log2n: int = 17):
     k2 = k2 and torch.equal(got[0], ntt.ntt(dom, vectors[0]))
     if not k2:
         raise AssertionError("mxu: ntt256 differs from K2's ntt at k = 8")
+    kernels = _mxu_paths_without_torch_carry(dev, a, rng)
     # the probe's path, counted
     reset_counts()
     rows = probe.run(str(dev), log2n, 3)
     torch.cuda.synchronize()
     counts = read_counts()
-    require_launched("mxu", counts, ("K5",))
+    require_launched("mxu", counts, ("K5", *K5_ENTRIES))
     emit({"phase": "mxu", "k5": rec, "fixed_mul_equals_k1": fixed,
-          "ntt256_equals_k2": k2, "probe": rows, "launches": counts})
+          "ntt256_equals_k2": k2, "path_kernels": kernels, "probe": rows,
+          "launches": counts})
     return rec, counts
 
 
@@ -1624,7 +1736,8 @@ def kernels_record(rec: dict, counts: dict, ipa_counts: dict,
     BN254 Montgomery product, an NTT over Fr or a G1 addition, so
     ``library_ms`` is null for K1-K3 and the probes; K5's is
     ``torch._int_mm`` (cuBLASLt int8) on the same products, without the
-    fold."""
+    fold; null for K5's normalize entry (no PyTorch call carries limbs),
+    whose row sums the ``mxu`` phase's four carry sites."""
     from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_nibble, cuda_ntt,
                                          cuda_probe)
 
@@ -1640,7 +1753,10 @@ def kernels_record(rec: dict, counts: dict, ipa_counts: dict,
              for key, name in PROBE_KERNELS.items()]
     rows.append(("P1_full", "P1", "mul_probe_full", cuda_probe.SOURCE["mul_probe"],
                  cuda_probe.REPLACES["mul_probe"]))
-    rows.append(("K5", "K5", "nibble_product", cuda_nibble.SOURCE, cuda_nibble.REPLACES))
+    rows.append(("K5", "K5_product", "nibble_product", cuda_nibble.SOURCE,
+                 cuda_nibble.REPLACES))
+    rows.append(("K5_normalize", "K5_normalize", "nibble_normalize",
+                 cuda_nibble.SOURCE, cuda_nibble.REPLACES))
     out = []
     for key, count_key, name, source, replaces in rows:
         r = rec[key]
@@ -1695,7 +1811,8 @@ def main(only: str = "") -> int:
     probe_counts = phase_probes(dev)
     counts.update({key: probe_counts[key] for key in PROBE_KERNELS})
     rec["K5"], mxu_counts = phase_mxu(dev)
-    counts["K5"] = mxu_counts["K5"]
+    rec["K5_normalize"] = rec["K5"]["normalize_summed"]
+    counts.update({key: mxu_counts[key] for key in ("K5", *K5_ENTRIES)})
     free()
     phase_gwc_packed(pk, values)
     mesh_counts = phase_mesh(pk, values, dev)

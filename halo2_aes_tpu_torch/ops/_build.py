@@ -61,8 +61,10 @@ SIGNATURES = {
     "mont_mul_planes16_launch": [_P, _P, _P, _I, _P, _U, _P],
     # out, a, b, n, p as 20 13-bit limbs (host), -p^-1 mod 2^13, stream
     "mont_mul_planes13_launch": [_P, _P, _P, _I, _P, _U, _P],
-    # out, x, B, groups, rows, limbs, m, block, stream
-    "nibble_mma_launch": [_P, _P, _P, _I, _I] + [ctypes.c_int] * 3 + [_P],
+    # out, x, packed B, offsets, masks, addend | NULL, groups, rows, limbs,
+    # ksteps, tiles, tile limbs, limbs a column block, limbs, width (0: fold
+    # only), addend limbs, stream
+    "nibble_mma_launch": [_P] * 6 + [_I, _I] + [ctypes.c_int] * 8 + [_P],
 }
 
 

@@ -13,17 +13,21 @@ The reference's construction, kept exactly:
     * (-p^-1 mod R') mod R' and u = (t + m*p) / R' are two more products
     against fixed banded matrices.  Any t < p * R' reduces to < 2p.
 
-Every int8 product goes through K5 (``cuda_nibble.nibble_product``): on a
-CUDA tensor the hand-written tensor-core kernel, which makes the nibbles
-in registers and folds the nibble columns into 16-bit limbs in its
-epilogue; on a CPU tensor its plain version.  No float route: the
+Every int8 product goes through K5's normalize entry
+(``cuda_nibble.nibble_normalize``): on a CUDA tensor the hand-written
+tensor-core kernel, which makes the nibbles in registers, folds the
+nibble columns into 16-bit limbs and carries each column block (plus an
+addend row) into canonical limbs in its epilogue, so no carry pass runs
+in PyTorch; on a CPU tensor its plain version.  No float route: the
 reference's bf16 product is exact only below 2^24, and a bf16 matmul on
-the card may reduce in lower precision.  The carry passes, the
-conditional subtraction and the reshapes are plain PyTorch in int64.
+the card may reduce in lower precision.  The conditional subtraction and
+the reshapes are plain PyTorch.  ``carry_norm_ks`` stays as the
+reference's carry pass, the function the epilogue computes.
 
 Tensors keep the port's layout: ``(..., 16)`` canonical 16-bit limbs as
 ``torch.int32``.  The matrices are built on the host (numpy int8, cached
-per field and operand) and moved to a device once per device.
+per field and operand) and moved to a device once per device, where a
+CUDA device also gets K5's packed form of each (``cuda_nibble.pack``).
 
 Overflow audit: a product column receives at most 64 nibble products per
 operand pair, each <= 225, times N pairs, so <= 225 * 64 * N; the fold
@@ -107,18 +111,25 @@ def _dft_blocks(spec: F.FieldSpec, ws) -> np.ndarray:
                                 .reshape(g, n * NIBS, n * _COLS))
 
 
-def _on(cache: dict, host: np.ndarray, device) -> torch.Tensor:
-    """``host`` as an int8 tensor on ``device``, moved there once."""
+def _operand(host: np.ndarray, device, block: int | None = None):
+    """(``host`` as an int8 tensor on ``device``, its K5 packed form on a
+    CUDA device, else None)."""
+    B = torch.from_numpy(host).to(device)
+    return B, (cuda_nibble.pack(B, block) if B.device.type == "cuda" else None)
+
+
+def _on(cache: dict, host: np.ndarray, device, block: int | None = None):
+    """``_operand`` of ``host``, made once per device (a cache serves one
+    matrix, always packed with the same ``block``)."""
     key = str(device)
     if key not in cache:
-        cache[key] = torch.from_numpy(host).to(device)
+        cache[key] = _operand(host, device, block)
     return cache[key]
 
 
 @functools.lru_cache(maxsize=None)
 def _reducer_dev(modulus: int, device: str):
-    return tuple(torch.from_numpy(m[None]).to(device)
-                 for m in _reducer_mats(modulus))
+    return tuple(_operand(m[None], device) for m in _reducer_mats(modulus))
 
 
 # --------------------------------------------------------------------------
@@ -130,13 +141,21 @@ def nibbles_from_limbs(a) -> torch.Tensor:
     return cuda_nibble.nibbles(a, torch.int8)
 
 
-def _product(x, B, block: int | None = None) -> torch.Tensor:
-    """(..., L) limbs times one (1, 4L, M) int8 matrix through K5 ->
-    int32 (..., limbs) of the folded column blocks."""
-    lead = x.shape[:-1]
-    out = cuda_nibble.nibble_product(
-        x.reshape(1, -1, x.shape[-1]).contiguous(), B, block)
-    return out.reshape(*lead, out.shape[-1])
+def _normalize(x, op, width: int, block: int | None = None,
+               addend=None) -> torch.Tensor:
+    """(..., L) limbs times one (1, 4L, M) operand (``_on``) through K5's
+    normalize entry -> int32 (..., (M / block) * width): each column
+    block's limbs, plus ``addend`` (..., A), carried into ``width``
+    canonical limbs, the top carry dropped."""
+    B, packed = op
+
+    def rows(t):
+        return t.reshape(1, -1, t.shape[-1]).contiguous()
+
+    out = cuda_nibble.nibble_normalize(
+        rows(x), B, block, width, None if addend is None else rows(addend),
+        packed)
+    return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
 def carry_norm_ks(acc, out_limbs: int) -> torch.Tensor:
@@ -159,31 +178,30 @@ def carry_norm_ks(acc, out_limbs: int) -> torch.Tensor:
 
 
 def reduce_wide(spec: F.FieldSpec, t_norm) -> torch.Tensor:
-    """Full-word Montgomery reduction by R' = 2^272 via two K5 products.
+    """Full-word Montgomery reduction by R' = 2^272 via two K5 products,
+    each carried in K5's epilogue.
 
     ``t_norm``: int32 (..., T) canonical 16-bit limbs, value < p * 2^272.
     Returns int32 (..., 16) canonical limbs of t * 2^-272 mod p."""
     NP, P = _reducer_dev(spec.modulus, str(t_norm.device))
     # m = (t mod R') * N' mod R'
-    m = carry_norm_ks(_product(t_norm[..., :RP_LIMBS], NP), RP_LIMBS)
-    # u = (t + m*p) / R'
-    mp = _product(m, P)                                    # 33 limbs
+    m = _normalize(t_norm[..., :RP_LIMBS], NP, RP_LIMBS)
+    # u = (t + m*p) / R': m*p's 33 limbs plus t, carried into width limbs
     width = max(t_norm.shape[-1], RP_LIMBS + F.LIMBS) + 1
-    pad = torch.nn.functional.pad
-    u = (pad(t_norm.to(torch.int64), (0, width - t_norm.shape[-1]))
-         + pad(mp.to(torch.int64), (0, width - mp.shape[-1])))
-    r = carry_norm_ks(u, width)[..., RP_LIMBS:RP_LIMBS + F.LIMBS]  # exact /R'
+    u = _normalize(m, P, width, addend=t_norm)
+    r = u[..., RP_LIMBS:RP_LIMBS + F.LIMBS]                # exact /R'
     return F._cond_sub_p(spec, r.to(torch.int64)).to(torch.int32)
 
 
-def _reduce_outputs(spec: F.FieldSpec, conv, n: int) -> torch.Tensor:
-    """(..., n * 32) folded limbs of n DFT outputs -> (..., n, 16).
+_DFT_WIDTH = 2 * F.LIMBS + 1   # limbs of one carried DFT output
 
-    t = sum_k x_k * w'_jk < N * p^2 can exceed 2^512 for N > 16, so each
-    output is carry-normalized into 33 limbs."""
-    t = conv.reshape(*conv.shape[:-1], n, 2 * F.LIMBS)
-    t = carry_norm_ks(torch.nn.functional.pad(t, (0, 1)), 2 * F.LIMBS + 1)
-    return reduce_wide(spec, t)
+
+def _reduce_outputs(spec: F.FieldSpec, t, n: int) -> torch.Tensor:
+    """(..., n * 33) carried limbs of n DFT outputs -> (..., n, 16).
+
+    t = sum_k x_k * w'_jk < N * p^2 can exceed 2^512 for N > 16, so K5
+    carries each output into 33 limbs."""
+    return reduce_wide(spec, t.reshape(*t.shape[:-1], n, _DFT_WIDTH))
 
 
 # --------------------------------------------------------------------------
@@ -204,8 +222,7 @@ class FixedMul:
         self._dev = {}
 
     def __call__(self, a) -> torch.Tensor:
-        conv = _product(a, _on(self._dev, self._B, a.device))
-        t = carry_norm_ks(conv, 2 * F.LIMBS)
+        t = _normalize(a, _on(self._dev, self._B, a.device), 2 * F.LIMBS)
         return reduce_wide(self.spec, t)
 
 
@@ -228,8 +245,9 @@ class DftMatmul:
         n = self.n
         assert x.shape[-2] == n
         flat = x.reshape(*x.shape[:-2], n * F.LIMBS)
-        conv = _product(flat, _on(self._dev, self._W, x.device), _COLS)
-        return _reduce_outputs(self.spec, conv, n)
+        t = _normalize(flat, _on(self._dev, self._W, x.device, _COLS),
+                       _DFT_WIDTH, _COLS)
+        return _reduce_outputs(self.spec, t, n)
 
 
 class BatchedDftMatmul:
@@ -253,9 +271,9 @@ class BatchedDftMatmul:
         lead = x.shape[:-3]
         # group-major rows for K5: (G, batch, N*16)
         xg = x.reshape(-1, g, n * F.LIMBS).transpose(0, 1).contiguous()
-        conv = cuda_nibble.nibble_product(
-            xg, _on(self._dev, self._W, x.device), _COLS)
-        out = _reduce_outputs(self.spec, conv, n)           # (G, batch, N, 16)
+        W, packed = _on(self._dev, self._W, x.device, _COLS)
+        t = cuda_nibble.nibble_normalize(xg, W, _COLS, _DFT_WIDTH, packed=packed)
+        out = _reduce_outputs(self.spec, t, n)              # (G, batch, N, 16)
         return out.transpose(0, 1).reshape(*lead, g, n, F.LIMBS)
 
 
