@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one CUDA card.
 
-  python3 chip_smoke.py [golden,mock,ipa,mini,srs_format,mesh,mxu]
+  python3 chip_smoke.py [golden,mock,ipa,mini,srs_format,mesh,mxu,large_k22]
 
 With no argument every phase runs; with a comma-separated list only the
 device and build phases and the named ones do, and no ok line is printed.
@@ -60,8 +60,12 @@ Phases, each printing one JSON line as it ends:
                 host memory): the toy, tagged and instance golden proofs
                 and the mini-AES golden proof on the mesh, and beside
                 them dryrun_multichip(2) (sharded mock counts, NTT round
-                trip, toy prove); each rank launched K2 and K3 at its
-                sharded shapes; a rank's failure or timeout fails the phase
+                trip, toy prove), and two more ranks proving the toy with
+                checkpoints in one directory under build/, crashed on
+                both ranks after each phase in turn and resumed to the
+                golden bytes without recomputing a saved phase; each rank
+                launched K2 and K3 at its sharded shapes; a rank's
+                failure or timeout fails the phase
   7 ctr         a two-chunk (768-block) AES-CTR bundle at the flagship
                 width with the keystream exposed: keystream = AES of the
                 counter blocks, one verify_batch accepts the bundle, a
@@ -71,13 +75,21 @@ Phases, each printing one JSON line as it ends:
                 verified with the plaintext instances, flipped byte rejected
   9 large       the k >= 19 prove path: the flagship proved once more with
                 the sliced path forced (static evaluations recomputed)
-                equals the ordinary proof byte for byte; then, with the
+                equals the ordinary proof byte for byte, and so does one
+                with k=22's commitments forced (no MSM window tables);
+                then, with the
                 earlier phases' memory freed, the reference prover binary's shape
                 (AES-128, k=20, 4 sets, 3,082 blocks, tagged ops): setup
                 and keygen (cached in ptau/, 3.2 GB), witness, one
                 prove, verify, a flipped byte rejected, peak memory; and
                 a K=6 toy prove crashed after its products phase resumes
                 from its checkpoints to the golden bytes
+    large_k22   the same circuit at k=22 (the NTT's reach), 12,335 blocks
+                (full capacity), nothing cached on disk: setup, keygen,
+                witness, prove, verify, a flipped byte rejected; each
+                step's seconds and peak, the memory held before the
+                prove; the peak over setup, keygen and the prove must
+                stay within 90% of the card's memory
  10 mock        the vectorized MockProver on the card: at the flagship
                 layout and at the reference's mock bench shape (k=17, 2
                 sets, 192 blocks) the witness satisfies every constraint,
@@ -100,7 +112,7 @@ Phases, each printing one JSON line as it ends:
                 the flagship proof verified again through the pure-Python
                 route gives the same verdicts (valid and flipped byte),
                 with the seconds of each route
-Phases 4, 5-8, mxu, mesh, the k=20 prove of 9 and 11 each set the launch counts to 0
+Phases 4, 5-8, mxu, mesh, the k=20 prove of 9, large_k22 and 11 each set the launch counts to 0
 before they drive their path and fail if a kernel of the path never
 launched.  Then the card line, the kernels record and, last, the ok
 line.  Any failure raises and the exit code is non-zero.
@@ -120,6 +132,10 @@ FLAGSHIP_PROOF_BYTES = 5056      # the reference's proof length at this shape
 # the reference prover binary's shape (its src/main.rs: K=20, N=4 column sets;
 # 3,082 blocks as BASELINE.md sizes it)
 LARGE = dict(k=20, n_sets=4, n_blocks=3082, tagged_ops=True)
+# the same circuit at the NTT's reach, k=22, at its full capacity
+LARGE22 = dict(k=22, n_sets=4, n_blocks=12335, tagged_ops=True)
+# the share of the card's memory the k=22 setup, keygen and prove may peak at
+LARGE22_MEM_SHARE = 0.9
 
 
 def emit(obj) -> None:
@@ -1111,11 +1127,14 @@ def phase_mesh(pk, values, dev) -> dict:
     from halo2_aes_tpu_torch import ctr
     from halo2_aes_tpu_torch.backend import keygen as KG
     from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.backend import resume as RES
     from halo2_aes_tpu_torch.backend import verifier as VF
     from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
     from halo2_aes_tpu_torch.parallel import comm
     from halo2_aes_tpu_torch.parallel import dryrun as DR
 
+    with open(os.path.join(DR.TESTDATA, "golden_k6.json")) as f:
+        golden_toy = json.load(f)["toy"]["proof"]
     root = os.path.join(REPO, "build", "mesh")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -1177,21 +1196,38 @@ def phase_mesh(pk, values, dev) -> dict:
         "mesh_prove_median_s": statistics.median(times["mesh"]),
         "first_mesh_prove": first, "collectives_per_warm_prove": warm,
         "seedless_peak_mem_bytes": peak, "launches": counts}
-    # the golden proves' two ranks and the dry run's two run side by side
+    # the golden proves' two ranks, the checkpoint run's two and the dry
+    # run's two run side by side
     t0 = time.perf_counter()
+    rank_args = ["halo2_aes_tpu_torch.parallel.dryrun", "--backend", "gloo",
+                 "--device", "cuda:0"]
     ranks = comm.RankProcesses(
-        ["halo2_aes_tpu_torch.parallel.dryrun", "--backend", "gloo",
-         "--device", "cuda:0", "--task", "prove,mini",
-         "--proofs", "toy,tagged,instance"], 2, os.path.join(root, "ranks"))
+        [*rank_args, "--task", "prove,mini", "--proofs", "toy,tagged,instance"],
+        2, os.path.join(root, "ranks"))
+    ck_ranks = comm.RankProcesses(
+        [*rank_args, "--task", "checkpoint", "--checkpoint-dir",
+         os.path.join(root, "shared")], 2, os.path.join(root, "ckpt"))
     try:
         dry = DR.dryrun_multichip(2, backend="gloo", device="cuda:0", timeout=600)
         dryrun_s = time.perf_counter() - t0
         res = DR.rank_results(ranks.wait(600))
         proves_s = time.perf_counter() - t0
+        ck = DR.rank_results(ck_ranks.wait(600))
+        ck_s = time.perf_counter() - t0
     finally:
         ranks.kill()
-    for r in res + dry:
+        ck_ranks.kill()
+    for r in res + dry + ck:
         require_launched(f"mesh rank {r['rank']}", r["launches"], ("K2", "K3"))
+    resumed = {phase: [r["results"]["checkpoint"][phase] for r in ck]
+               for phase in RES.PHASES}
+    for phase, runs in resumed.items():
+        if [run["proof"] for run in runs] != [golden_toy] * 2:
+            raise AssertionError(f"mesh: the proof resumed after {phase} on two "
+                                 "ranks differs from golden")
+        if any(run["recomputed"] or run["files_left"] for run in runs):
+            raise AssertionError(f"mesh: resumed after {phase}, a saved phase "
+                                 "was recomputed or the store was not cleared")
     shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "mesh", "world1_nccl": world1, "world2_gloo_cuda0": {
         "golden_identical": ["toy", "tagged", "instance", "mini"],
@@ -1200,7 +1236,11 @@ def phase_mesh(pk, values, dev) -> dict:
         "dryrun_wall_s": dryrun_s,
         "dryrun_mock_counts_corrupted": [r["results"]["dryrun"][
             "mock_counts_corrupted"] for r in dry],
-        "dryrun_launches": [r["launches"] for r in dry]}})
+        "dryrun_launches": [r["launches"] for r in dry],
+        "checkpoint_resumed_golden_after": list(RES.PHASES),
+        "checkpoint_wall_s": ck_s,
+        "checkpoint_launches": [r["launches"] for r in ck],
+        "checkpoint_collectives": [r["collectives"] for r in ck]}})
     return counts
 
 
@@ -1318,10 +1358,13 @@ def phase_decrypt(srs, dev) -> None:
 def large_forced(pk, values) -> dict:
     """The flagship proved with the large path forced (switch lowered to
     its k, static sub-coset evaluations recomputed by evals_sliced)
-    equals the ordinary proof of the same seed, byte for byte."""
+    equals the ordinary proof of the same seed, byte for byte; so does
+    the flagship proved with the k=22 commitments forced (no MSM window
+    tables)."""
     import torch
 
     from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.ops import msm as MSM
 
     ordinary = PV.prove(pk, values, seed=5)
     saved = PV._LARGE_MIN_K
@@ -1335,12 +1378,35 @@ def large_forced(pk, values) -> dict:
         PV._LARGE_MIN_K = saved
     if sliced != ordinary:
         raise AssertionError("large: the forced sliced k=17 proof differs")
-    return {"k": pk.vk.k, "identical": True, "sliced_prove_s": sliced_s}
+    # and the k=22 commitments: no window tables (MSM.TABLELESS_MIN_N
+    # lowered to the SRS's size, its tables set aside for the prove)
+    srs, saved_n = pk.srs, MSM.TABLELESS_MIN_N
+    tables = srs._msm_tables
+    MSM.TABLELESS_MIN_N = srs.n
+    object.__setattr__(srs, "_msm_tables", None)
+    try:
+        t0 = time.perf_counter()
+        tableless = PV.prove(pk, values, seed=5)
+        torch.cuda.synchronize()
+        tableless_s = time.perf_counter() - t0
+        if srs._msm_tables is not None:
+            raise AssertionError("large: the SRS built tables below the switch")
+    finally:
+        MSM.TABLELESS_MIN_N = saved_n
+        object.__setattr__(srs, "_msm_tables", tables)
+    if tableless != ordinary:
+        raise AssertionError("large: the k=17 proof without window tables differs")
+    return {"k": pk.vk.k, "identical": True, "sliced_prove_s": sliced_s,
+            "tableless_identical": True, "tableless_prove_s": tableless_s}
 
 
-def large_k20(dev) -> dict:
-    """The reference prover binary's shape on the large path: setup, keygen,
-    witness, one SHPLONK prove (field-ordered lookups), verify."""
+def large_prove(dev, cfg: dict, cache: str | None) -> dict:
+    """AES-128 at ``cfg`` on the large path: setup, keygen (cached in
+    ``cache``, or nothing cached where it is None), witness, one SHPLONK
+    prove (field-ordered lookups), verify, a flipped byte rejected.
+    Each step's seconds and peak; the peak over setup, keygen and the
+    prove; what the prove found held; the launches from setup through
+    the prove."""
     import numpy as np
     import torch
 
@@ -1354,21 +1420,24 @@ def large_k20(dev) -> dict:
     from halo2_aes_tpu_torch.ops import field as F
     from halo2_aes_tpu_torch.ops import ntt as N
 
-    cfg = LARGE
-    cache = os.path.join(REPO, "ptau")
-    t = {}
+    t, peaks = {}, {}
 
     def timed(name, fn, *a, **kw):
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         out = fn(*a, **kw)
         torch.cuda.synchronize()
-        t[name] = time.perf_counter() - t0
+        t[f"{name}_s"] = time.perf_counter() - t0
+        peaks[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         return out
 
     reset_counts()
-    layout = timed("compile_s", compile_circuit, AesConfig(**cfg))
-    srs = timed("setup_s", SRS.setup, cfg["k"], dev, cache_dir=cache)
-    pk = timed("keygen_s", KG.keygen_cached, layout, srs, cache_dir=cache)
+    layout = timed("compile", compile_circuit, AesConfig(**cfg))
+    srs = timed("setup", SRS.setup, cfg["k"], dev, cache_dir=cache)
+    if cache is None:
+        pk = timed("keygen", KG.keygen, layout, srs)
+    else:
+        pk = timed("keygen", KG.keygen_cached, layout, srs, cache_dir=cache)
     ph = PV._get_phases(pk)
     if not ph.large():
         raise AssertionError(f"large: k={cfg['k']} does not take the large path")
@@ -1382,23 +1451,49 @@ def large_k20(dev) -> dict:
     key = torch.as_tensor(rng.integers(0, 256, 16, dtype=np.uint8), device=dev)
     pts = torch.as_tensor(rng.integers(0, 256, (cfg["n_blocks"], 16),
                                        dtype=np.uint8), device=dev)
-    values = timed("witness_s", lambda: witness.assemble_values(
+    values = timed("witness", lambda: witness.assemble_values(
         layout, witness.build_pool(key, pts)))
-    torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)     # keys, tables, witness
-    proof = timed("prove_s", PV.prove, pk, values)
-    peak = torch.cuda.max_memory_allocated(dev)
+    proof = timed("prove", PV.prove, pk, values)
     counts = read_counts()
-    timed("verify_s", VF.verify, pk.vk, proof)
+    timed("verify", VF.verify, pk.vk, proof)
     if not rejects_flipped_byte(lambda p: VF.verify(pk.vk, p), proof):
-        raise AssertionError("large: a k=20 proof with a flipped byte verified")
+        raise AssertionError(f"large: a k={cfg['k']} proof with a flipped "
+                             "byte verified")
     require_launched("large", counts, PATH_KERNELS)
-    return {**cfg, **t, "blocks_per_s": cfg["n_blocks"] / t["prove_s"],
+    peak = max(peaks[f"{name}_peak_bytes"] for name in ("setup", "keygen", "prove"))
+    return {**cfg, **t, **peaks, "blocks_per_s": cfg["n_blocks"] / t["prove_s"],
             "card_table_equals_host": True,
             "proof_bytes": len(proof), "verified": True,
-            "flipped_byte_rejected": True, "peak_mem_bytes": peak,
+            "flipped_byte_rejected": True, "peak_mem_bytes": peaks["prove_peak_bytes"],
+            "setup_keygen_prove_peak_bytes": peak,
             "held_before_prove_bytes": held,
+            "window_tables": srs._msm_tables is not None,
             "launches": {k: counts[k] for k in PATH_KERNELS}}
+
+
+def large_k20(dev) -> dict:
+    """The reference prover binary's shape (keys cached in ptau/)."""
+    return large_prove(dev, LARGE, os.path.join(REPO, "ptau"))
+
+
+def large_k22(dev) -> dict:
+    """The same circuit at k=22, full capacity, nothing cached on disk
+    (the cache would take ~13 GB); the peak over setup, keygen and the
+    prove must stay within LARGE22_MEM_SHARE of the card's memory."""
+    import torch
+
+    rec = large_prove(dev, LARGE22, None)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    rec["card_total_memory_bytes"] = total
+    rec["peak_share_of_card"] = rec["setup_keygen_prove_peak_bytes"] / total
+    if rec["peak_share_of_card"] > LARGE22_MEM_SHARE:
+        raise AssertionError(
+            f"large: the k=22 peak is {rec['peak_share_of_card']:.1%} of the "
+            f"card's memory, above {LARGE22_MEM_SHARE:.0%}")
+    if rec["window_tables"]:
+        raise AssertionError("large: the k=22 SRS built window tables")
+    return rec
 
 
 def large_resume(dev) -> dict:
@@ -1801,7 +1896,9 @@ def main(only: str = "") -> int:
             else:
                 {"golden": phase_golden, "mock": phase_mock, "ipa": phase_ipa,
                  "mini": phase_mini, "srs_format": phase_srs_format,
-                 "mxu": phase_mxu}[name](dev)
+                 "mxu": phase_mxu,
+                 "large_k22": lambda d: emit({"phase": "large_k22",
+                                              "k22": large_k22(d)})}[name](dev)
             free()
         return 0
     rec = phase_kernels(dev)
@@ -1825,6 +1922,8 @@ def main(only: str = "") -> int:
     free()
     emit({"phase": "large", "forced_sliced_k17": forced, "k20": large_k20(dev),
           "resume_k6": large_resume(dev)})
+    free()
+    emit({"phase": "large_k22", "k22": large_k22(dev)})
     free()
     phase_mock(dev)
     free()

@@ -101,9 +101,12 @@ def commit_many(srs: SRS, polys, mesh=None) -> list:
     if srs.n <= 512 or len(polys) < 2:
         return [commit_affine(srs, p) for p in polys]
     srs.warm_tables()
+    # without window tables (MSM.TABLELESS_MIN_N) a batch saves nothing:
+    # one commitment at a time keeps one poly's scalars and digits live
+    batch = COMMIT_BATCH if srs._msm_tables is not None else 1
     out = []
-    for lo in range(0, len(polys), COMMIT_BATCH):
-        chunk = polys[lo:lo + COMMIT_BATCH]
+    for lo in range(0, len(polys), batch):
+        chunk = polys[lo:lo + batch]
         scalars = F.from_mont(FR, torch.cat([
             torch.nn.functional.pad(p, (0, 0, 0, srs.n - p.shape[0]))
             for p in chunk]))

@@ -57,6 +57,7 @@ from halo2_aes_tpu_torch.backend import protocol as PROTO
 from halo2_aes_tpu_torch.backend import resume as RES
 from halo2_aes_tpu_torch.backend.keygen import ProvingKey, commit_affine, commit_many
 from halo2_aes_tpu_torch.backend.transcript import TranscriptWriter
+from halo2_aes_tpu_torch.ops import cuda_ntt
 from halo2_aes_tpu_torch.ops import curve as CV
 from halo2_aes_tpu_torch.ops import field as F
 from halo2_aes_tpu_torch.ops.ntt import domain, ntt_many
@@ -67,9 +68,10 @@ from halo2_aes_tpu_torch.utils import sanitize as SAN
 FR = F.FR
 LIMBS = F.LIMBS
 _R_LIMBS = F.int_to_limbs(FR.modulus)
-# the largest k proved on one H100 (80 GB); the two-pass NTT (K2 rows of
-# at most 2^11) would reach 2^22, but no k above 20 has been run
-MAX_K = 20
+# the NTT's reach: a transform is two K2 passes of rows of at most 2^11
+# points, so k = 22 is the largest k; above it a third pass would be
+# needed, and one 80 GB card would not hold k = 23's proof state
+MAX_K = 2 * cuda_ntt.MAX_LT
 # the sliced phases run from this k on (tests and the chip smoke lower it
 # to hold the sliced path against the unsliced one on small circuits)
 _LARGE_MIN_K = 19
@@ -799,33 +801,31 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     by canonical field value) or "packed" (uint32 keys of byte-ranged
     columns; other proof bytes, the same argument).  ``checkpoint_dir``:
     save each heavy phase there and resume a crashed prove at the first
-    incomplete phase (backend/resume.py).  k above MAX_K raises
-    NotImplementedError.
+    incomplete phase (backend/resume.py).  k above MAX_K (the NTT's
+    reach) raises NotImplementedError.
 
     ``mesh``: a ``parallel.comm.Mesh``; every rank calls ``prove`` with
     the same arguments and gets the same bytes, those of the one-device
     prove with the same seed.  ``mesh_axis`` names the mesh's axis (a
     mesh here has one).  With ``seed=None`` rank 0 draws every blinding
-    value from os.urandom and broadcasts the bytes.  Checkpoints need
-    one writer: ``checkpoint_dir`` on a mesh of more than one rank raises
-    NotImplementedError.  IPA on a mesh shards the commitments before
+    value from os.urandom and broadcasts the bytes.  On a mesh of more
+    than one rank ``checkpoint_dir`` must be an existing directory that
+    every rank sees; rank 0 writes the checkpoints (backend/resume.py).
+    IPA on a mesh shards the commitments before
     the opening and runs the opening's rounds on each rank's device, as
     the reference does."""
-    if mesh is not None:
-        if mesh_axis != mesh.axis:
-            raise ValueError(f"mesh axis {mesh_axis!r}; the mesh has {mesh.axis!r}")
-        if checkpoint_dir is not None and mesh.size > 1:
-            raise NotImplementedError(
-                "checkpoint_dir on a mesh of more than one rank")
+    if mesh is not None and mesh_axis != mesh.axis:
+        raise ValueError(f"mesh axis {mesh_axis!r}; the mesh has {mesh.axis!r}")
     if multiopen not in ("shplonk", "gwc", "ipa"):
         raise ValueError(f"unknown multiopen {multiopen!r}")
     if lookup_sort not in ("field", "packed"):
         raise ValueError(f"unknown lookup_sort {lookup_sort!r}")
     if pk.vk.k > MAX_K:
         raise NotImplementedError(
-            f"k={pk.vk.k} > {MAX_K}: k={MAX_K} is the largest k proved on one "
-            "80 GB H100; the two-pass NTT would reach k=22, but nothing above "
-            f"k={MAX_K} has been run")
+            f"k={pk.vk.k} > {MAX_K}: the NTT's reach is k={MAX_K} (two K2 passes "
+            f"of rows of at most 2^{cuda_ntt.MAX_LT} points; a larger k needs a "
+            "third NTT pass), and k=23's proof state would not fit one 80 GB "
+            "card's memory")
     if lookup_sort == "packed":
         for lk in pk.vk.cs.lookups:
             _check_lookup_packable(pk.layout, lk)
@@ -867,7 +867,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     ck = None
     if checkpoint_dir is not None:
         ck = RES.ProveCheckpoint(checkpoint_dir, RES.prove_key_material(
-            vk.digest, values, instances, seed, multiopen, lookup_sort))
+            vk.digest, values, instances, seed, multiopen, lookup_sort), mesh)
 
     def restored(st, names):
         """A loaded phase's tensors (on the device) and points; the RNG

@@ -20,6 +20,18 @@ format, and checkpoints key on the same bytes as the reference's (vk
 digest, witness as uint32, instances, seed, multiopen, lookup order),
 so a stale directory can never splice mismatched phases and the same
 inputs name the same directory in either package.
+
+On a mesh of more than one rank (parallel/comm.py) the directory is
+one directory that every rank sees, as the reference's single
+controller sees it, and it must exist when ``prove`` is called: a rank
+that cannot see it raises before any collective, and a rank that sees
+another directory than rank 0's fails the handshake, on every rank.
+Every rank holds the same phase outputs (the sharded NTT and MSM end in
+all-gathers), so rank 0 alone writes a phase and every rank passes a
+barrier before going on; on resume rank 0 loads a phase and broadcasts
+whether it is complete, so a half-written file cannot make ranks
+diverge, and every rank then loads the same files and restores the same
+RNG state.
 """
 
 from __future__ import annotations
@@ -33,18 +45,56 @@ import torch
 
 from halo2_aes_tpu_torch.backend.transcript import point_from_bytes, point_to_bytes
 from halo2_aes_tpu_torch.ops import field as F
+from halo2_aes_tpu_torch.parallel import comm
 
 # absorb/compute order of the checkpointable phases
 PHASES = ("advice", "lookup", "products", "quotient")
 
 
 class ProveCheckpoint:
-    """One prove attempt's phase store under ``dir/prove_<key>/``."""
+    """One prove attempt's phase store under ``dir/prove_<key>/``; with
+    a ``mesh`` of more than one rank, shared by its ranks (rank 0
+    writes)."""
 
-    def __init__(self, root: str, key_material: bytes):
+    def __init__(self, root: str, key_material: bytes, mesh=None):
         h = hashlib.blake2b(key_material, digest_size=12)
         self.dir = os.path.join(root, f"prove_{h.hexdigest()}")
-        os.makedirs(self.dir, exist_ok=True)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is None:
+            os.makedirs(self.dir, exist_ok=True)
+            return
+        if not os.path.isdir(root):
+            raise FileNotFoundError(
+                f"rank {self.mesh.rank}: checkpoint_dir {root!r} is not a "
+                "directory this rank can see; on a mesh of more than one rank "
+                "it must exist beforehand, one directory shared by every rank")
+        self._handshake()
+
+    def _handshake(self) -> None:
+        """Rank 0 creates the store and a token file named by random
+        bytes it broadcasts; every rank must find that file."""
+        token = None
+        if self.mesh.rank == 0:
+            os.makedirs(self.dir, exist_ok=True)
+            token = os.urandom(16)
+            with open(os.path.join(self.dir, f".rank0_{token.hex()}"), "w"):
+                pass
+        token = comm.broadcast_bytes(self.mesh, token, 16)
+        path = os.path.join(self.dir, f".rank0_{token.hex()}")
+        blind = self._any_rank(not os.path.exists(path))
+        if self.mesh.rank == 0:
+            os.remove(path)
+        if blind:
+            raise RuntimeError(
+                "checkpoint_dir is not one directory shared by every rank: "
+                f"rank(s) {blind} cannot see the file rank 0 wrote there")
+
+    def _any_rank(self, flag: bool) -> list:
+        """The ranks whose ``flag`` is true, on every rank."""
+        mine = torch.zeros(self.mesh.size, dtype=torch.int32,
+                           device=self.mesh.device)
+        mine[self.mesh.rank] = int(flag)
+        return torch.nonzero(comm.all_reduce(self.mesh, mine)).flatten().tolist()
 
     def _paths(self, phase: str):
         return (os.path.join(self.dir, f"{phase}.npz"),
@@ -53,7 +103,25 @@ class ProveCheckpoint:
     def load(self, phase: str):
         """(arrays: dict of numpy uint32, points, rng_state) or None.  A
         half-written checkpoint (a crash during save) loads as None: the
-        .json marker is written last."""
+        .json marker is written last.  On a mesh, rank 0's load decides
+        for every rank."""
+        if self.mesh is None:
+            return self._load(phase)
+        mine = self._load(phase) if self.mesh.rank == 0 else None
+        done = comm.broadcast_bytes(
+            self.mesh, None if self.mesh.rank else bytes([mine is not None]), 1)
+        if not done[0]:
+            return None
+        if self.mesh.rank:
+            mine = self._load(phase)
+        failed = self._any_rank(mine is None)
+        if failed:
+            raise RuntimeError(
+                f"checkpoint phase {phase!r}: rank(s) {failed} cannot read "
+                "what rank 0 wrote")
+        return mine
+
+    def _load(self, phase: str):
         npz_path, meta_path = self._paths(phase)
         if not os.path.exists(meta_path):
             return None
@@ -68,6 +136,14 @@ class ProveCheckpoint:
         return arrays, points, meta.get("rng_state")
 
     def save(self, phase: str, arrays: dict, points, rng=None) -> None:
+        """Write a phase (on a mesh: rank 0 writes, every rank waits for
+        it at a barrier)."""
+        if self.mesh is None or self.mesh.rank == 0:
+            self._save(phase, arrays, points, rng)
+        if self.mesh is not None:
+            comm.barrier(self.mesh)
+
+    def _save(self, phase: str, arrays: dict, points, rng) -> None:
         npz_path, meta_path = self._paths(phase)
         np.savez(npz_path, **{k: F.to_numpy(v) for k, v in arrays.items()})
         meta = {
@@ -80,10 +156,13 @@ class ProveCheckpoint:
         os.replace(tmp, meta_path)  # the marker lands atomically, last
 
     def clear(self) -> None:
-        for phase in PHASES:
-            for p in self._paths(phase):
-                if os.path.exists(p):
-                    os.remove(p)
+        if self.mesh is None or self.mesh.rank == 0:
+            for phase in PHASES:
+                for p in self._paths(phase):
+                    if os.path.exists(p):
+                        os.remove(p)
+        if self.mesh is not None:
+            comm.barrier(self.mesh)
 
 
 def _rng_state(rng):

@@ -66,11 +66,13 @@ class SRS:
         return tag
 
     def warm_tables(self) -> None:
-        """Load or build the MSM window tables now."""
+        """Load or build the MSM window tables now; from
+        ``MSM.TABLELESS_MIN_N`` points on there are none (None)."""
         if getattr(self, "_msm_tables", None) is None:
-            c = MSM.default_window(self.n)
-            object.__setattr__(self, "_msm_tables",
-                               self._load_or_build_tables(c))
+            tables = None
+            if self.n < MSM.TABLELESS_MIN_N:
+                tables = self._load_or_build_tables(MSM.default_window(self.n))
+            object.__setattr__(self, "_msm_tables", tables)
 
     def commit(self, coeffs_mont):
         """Commit a coefficient-form poly ((m, 16) Montgomery, m <= n) ->

@@ -36,6 +36,15 @@ SCALAR_BITS = 254
 # peaks at 11.0 GB on the H100.  Grouping does not change the result.
 _GROUP_ROWS = 1 << 23
 
+# From this many points on, commitments run without window tables: the
+# SRS builds none (``backend/srs.SRS.warm_tables``) and each MSM folds its
+# window sums by Horner doublings over the bare points, one commitment
+# at a time.  At 2^22 points the 26 windows' tables would hold 14.0 GB
+# of the card and their build a multiple of that; the doubling tail is
+# 26 x 2 small launches a commitment.  Affine results are unique, so the
+# commitments do not depend on the switch.  Tests lower it.
+TABLELESS_MIN_N = 1 << 22
+
 
 def default_window(n: int) -> int:
     """Window size minimizing W*(n + B*(log2 n + 2)) tree+extract adds."""
@@ -240,11 +249,17 @@ def msm_many(points, scalars_flat, count: int, c: int, tables):
     FLAT (count*n, 16) plain Fr limbs (commitment i at rows
     [i*n, (i+1)*n)).  Every commitment's windows join one window axis,
     so each tree level is one batched add for all of them.  Requires
-    the shifted window ``tables`` and power-of-two n.  Returns a
-    projective triple of (count, 16) tensors."""
+    the shifted window ``tables`` and power-of-two n; with ``tables``
+    None (from ``TABLELESS_MIN_N`` points on) each commitment is one
+    ``msm`` without them.  Returns a projective triple of (count, 16)
+    tensors."""
     px, py = points
     n = px.shape[0]
     assert n & (n - 1) == 0, "tables require power-of-two n"
+    if tables is None:
+        sums = [msm(points, scalars_flat[i * n:(i + 1) * n], c)
+                for i in range(count)]
+        return tuple(torch.stack([s[j] for s in sums]) for j in range(3))
     W = -(-SCALAR_BITS // c)
     assert tables.shape == (W * n, 2 * F.LIMBS)
     digs = torch.cat([digit_matrix(scalars_flat[i * n:(i + 1) * n], c)

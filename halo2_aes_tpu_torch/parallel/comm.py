@@ -11,7 +11,8 @@ limbs (or bytes), in four collectives:
   all_gather       a stack of every rank's tensor (the NTT's output, the
                    MSM's partial sums, the dry run's witness pools);
   broadcast_bytes  bytes from rank 0 (the prover's blinding draws);
-  all_reduce       an elementwise sum (the dry run's violation counts).
+  all_reduce       an elementwise sum (the dry run's violation counts;
+                   ``barrier`` and the checkpoints' rank flags).
 
 With ``backend="nccl"`` they run on the CUDA tensors themselves.  With
 ``backend="gloo"`` a CUDA tensor is copied to host memory and back
@@ -141,6 +142,12 @@ def all_reduce(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     CALLS["all_reduce"] += 1
     BYTES["all_reduce"] += buf.numel() * buf.element_size()
     return buf.to(x.device)
+
+
+def barrier(mesh: Mesh) -> None:
+    """Return once every rank has called it (an all-reduce of one int32,
+    counted as one)."""
+    all_reduce(mesh, torch.zeros(1, dtype=torch.int32, device=mesh.device))
 
 
 class RankZeroRandom:

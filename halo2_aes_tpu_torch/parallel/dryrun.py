@@ -28,8 +28,11 @@ without tables against ``curve.host_msm``); ``prove`` (the golden K=6
 entries named by ``--proofs`` on the mesh, each equal to its golden
 bytes; ``--sliced`` forces the k >= 19 path, ``--seedless`` adds a
 ``seed=None`` prove; an IPA entry proves against the transparent
-basis); ``mini`` (the k=11 mini-AES golden proof); ``ctr``
-(a two-chunk k=17 keystream bundle).  Each rank prints one JSON line
+basis); ``checkpoint`` (toy proves crashed after each phase of
+``--crash-after`` and resumed from ``--checkpoint-dir``, one directory
+every rank sees; ``--seedless`` proves with seed=None); ``mini`` (the
+k=11 mini-AES golden proof); ``ctr`` (a two-chunk k=17 keystream
+bundle).  Each rank prints one JSON line
 last: its results and K1/K2/K3 launches.
 """
 
@@ -363,6 +366,80 @@ def _task_prove(mesh, args) -> dict:
     return out
 
 
+def _task_checkpoint(mesh, args) -> dict:
+    """For each phase of ``--crash-after``: a toy prove on the mesh with
+    checkpoints under ``--checkpoint-dir``/<phase> (the seeded golden
+    prove; with ``--seedless`` a seed=None one) crashes on every rank
+    right after that phase's checkpoint, and a second prove resumes from
+    the checkpoints without recomputing the saved phases.  ``{rank}`` in
+    the directory is replaced by the rank (ranks that do not share one
+    directory must fail).  Returns {phase: {"proof": hex, "recomputed":
+    [phase functions called], "files_left": [files in the store]}}."""
+    import os
+
+    from halo2_aes_tpu_torch.backend import keygen, prover, resume, srs, verifier
+    from halo2_aes_tpu_torch.circuit.toys import K, TOYS
+
+    golden = json.loads((TESTDATA / "golden_k6.json").read_text())["toy"]["proof"]
+    build, seed, _ = TOYS["toy"]
+    layout, values = build()
+    pk = keygen.keygen(layout, srs.setup(K, mesh.device, cache_dir=None))
+    ph = prover._get_phases(pk)
+    seed = None if args.seedless else seed
+    fns = {"advice": ["advice_phase"], "lookup": ["lookup_phase"],
+           "products": ["perm_products", "lookup_products_all"],
+           "quotient": ["quotient_subcoset"]}
+    save = resume.ProveCheckpoint.save
+    out = {}
+    shared = args.checkpoint_dir.replace("{rank}", str(mesh.rank))
+    for crash_after in (args.crash_after or ",".join(resume.PHASES)).split(","):
+        root = os.path.join(shared, crash_after)
+        os.makedirs(root, exist_ok=True)
+
+        def crashing_save(self, phase, arrays, points, rng=None):
+            save(self, phase, arrays, points, rng)
+            if phase == crash_after:
+                raise RuntimeError("injected crash")
+
+        resume.ProveCheckpoint.save = crashing_save
+        try:
+            prover.prove(pk, values, seed=seed, mesh=mesh, checkpoint_dir=root)
+        except RuntimeError as e:
+            if "injected crash" not in str(e):
+                raise
+        else:
+            raise AssertionError("the injected crash did not happen")
+        finally:
+            resume.ProveCheckpoint.save = save
+        called = []
+
+        def spy(name, fn):
+            def run(*a, **kw):
+                called.append(name)
+                return fn(*a, **kw)
+            return run
+
+        saved = resume.PHASES[:resume.PHASES.index(crash_after) + 1]
+        names = [f for phase in saved for f in fns[phase]]
+        for name in names:
+            setattr(ph, name, spy(name, getattr(ph, name)))
+        try:
+            proof = prover.prove(pk, values, seed=seed, mesh=mesh,
+                                 checkpoint_dir=root)
+        finally:
+            for name in names:
+                del ph.__dict__[name]
+        if seed is None:
+            assert verifier.verify(pk.vk, proof), "seed=None resumed proof rejected"
+        else:
+            assert proof.hex() == golden, f"resumed after {crash_after}: not golden"
+        left = [f for d in os.listdir(root)
+                for f in os.listdir(os.path.join(root, d))]
+        out[crash_after] = {"proof": proof.hex(), "recomputed": called,
+                            "files_left": left}
+    return out
+
+
 def _task_mini(mesh, args) -> dict:
     from halo2_aes_tpu_torch.backend import keygen, prover, srs
     from halo2_aes_tpu_torch.circuit import witness
@@ -397,6 +474,7 @@ def _task_ctr(mesh, args) -> dict:
 
 TASKS = {"dryrun": lambda mesh, _: dryrun_rank(mesh), "ntt": _task_ntt,
          "msm": _task_msm, "prove": _task_prove, "mini": _task_mini,
+         "checkpoint": _task_checkpoint,
          "ctr": _task_ctr}
 
 
@@ -422,7 +500,14 @@ def main(argv=None) -> int:
     ap.add_argument("--sliced", action="store_true",
                     help="prove task: force the k >= 19 path")
     ap.add_argument("--seedless", action="store_true",
-                    help="prove task: add a seed=None prove of the toy")
+                    help="prove task: add a seed=None prove of the toy; "
+                         "checkpoint task: prove with seed=None")
+    ap.add_argument("--crash-after", default=None,
+                    help="checkpoint task: the phases to crash after "
+                         "(default: every checkpointed phase)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="checkpoint task: the shared checkpoint root "
+                         "({rank} is replaced by the rank)")
     ap.add_argument("--out", default=None, help="directory for array outputs")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)

@@ -18,8 +18,9 @@ given the public bytes (the ciphertext, or with ``--decrypt`` the
 recovered plaintext) from an oracle run apart from the witness.
 ``--checkpoint-dir`` saves each heavy prove phase there, so that a
 rerun of a crashed prove resumes at the first incomplete phase.  The
-SRS, its MSM window tables and the keygen commitments are cached in
-``ptau/`` (3.2 GB at k=20).
+SRS, its MSM window tables (below 2^22 points; there are none from
+there on) and the keygen commitments are cached in ``ptau/`` (3.2 GB at
+k=20).
 """
 
 from __future__ import annotations

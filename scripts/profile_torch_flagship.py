@@ -141,7 +141,8 @@ def main() -> int:
         return PV.prove(pks[names[0]], values, **opts[names[0]])
 
     if args.phases:
-        out["phases_s"], out["phase_peak_bytes"] = phase_prove(one_more, dev)
+        (out["phases_s"], out["phase_peak_bytes"],
+         out["phase_held_bytes"]) = phase_prove(one_more, dev)
     if args.profile:
         out["profile"] = profiled_prove(one_more, dev)
     if "mesh" in opts:

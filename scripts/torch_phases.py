@@ -23,11 +23,14 @@ PHASE_AT = {"theta": "advice", "beta": "lookup_permuted", "gamma": None,
 CHALLENGES = ["theta", "beta", "gamma", "y", "x", "y2", "v", "u"]
 
 
-def phase_prove(prove, device) -> tuple[dict, dict]:
+def phase_prove(prove, device, log=None) -> tuple[dict, dict, dict]:
     """Run ``prove()`` (a SHPLONK or IPA prove) with the device synchronised at
     every transcript challenge.  Returns ({phase: seconds}, {phase: peak
-    device bytes allocated within it}); each interval is named after the
-    prover phase that ends there."""
+    device bytes allocated within it}, {phase: device bytes allocated
+    when it began}); each interval is named after the prover phase that
+    ends there.  ``log(label, seconds, peak, allocated)``, if given, is
+    called at every challenge as it comes (a run that dies of
+    out-of-memory still shows how far it got)."""
     import torch
 
     from halo2_aes_tpu_torch.backend.transcript import TranscriptWriter
@@ -38,8 +41,11 @@ def phase_prove(prove, device) -> tuple[dict, dict]:
     def mark(label):
         torch.cuda.synchronize(device)
         marks.append((label, time.perf_counter(),
-                      torch.cuda.max_memory_allocated(device)))
+                      torch.cuda.max_memory_allocated(device),
+                      torch.cuda.memory_allocated(device)))
         torch.cuda.reset_peak_memory_stats(device)
+        if log is not None and len(marks) > 1:
+            log(label, marks[-1][1] - marks[-2][1], marks[-1][2], marks[-1][3])
 
     def hooked_squeeze(self):
         i = len(marks) - 1
@@ -58,13 +64,14 @@ def phase_prove(prove, device) -> tuple[dict, dict]:
     finally:
         TranscriptWriter.squeeze_challenge = squeeze
         TranscriptWriter.finalize = finalize
-    seconds, peaks, current = {}, {}, None
-    for (_, t_prev, _), (label, t, peak) in zip(marks, marks[1:]):
+    seconds, peaks, held, current = {}, {}, {}, None
+    for (_, t_prev, _, at_start), (label, t, peak, _) in zip(marks, marks[1:]):
         if not (label == "finalize" and current == "ipa_rounds"):
             current = PHASE_AT[label] or current
         seconds[current] = seconds.get(current, 0.0) + t - t_prev
         peaks[current] = max(peaks.get(current, 0), peak)
-    return seconds, peaks
+        held.setdefault(current, at_start)
+    return seconds, peaks, held
 
 
 def profiled_prove(prove, device) -> dict:

@@ -3,19 +3,30 @@
 
   python scripts/torch_prove_steady.py --device cuda [k] [blocks] [sets]
       [--tagged] [--lookup-sort field|packed] [--tables] [--phases]
-      [--static-compare N] [--proves N] [--profile] [--tree DIR] [--out FILE]
+      [--static-compare N] [--proves N] [--profile] [--tree DIR]
+      [--cache-dir DIR|none] [--out FILE]
 
 The counterpart of ``scripts/prove_steady.py`` (defaults: k=17, 4
 blocks, one column set): compiles the AES-128 circuit, sets up the SRS
-and keys (cached in ``ptau/``), builds the witness, then times a cold, a
-warm and a steady prove (blinding seeds 1, 2, 3), each with its peak
-device memory and kernel launches, and a verify.  From k=19 on the
-proves take the sliced large path.
+and keys (cached in ``--cache-dir``, default ``ptau/``; ``none`` caches
+nothing, as k=22's 13 GB would need), builds the witness, then times a
+cold, a warm and a steady prove (blinding seeds 1, 2, 3), each with its
+peak device memory, the memory held when it began and its kernel
+launches, and a verify.  Setup, keygen and the witness each report their
+seconds and peak too, and ``held_bytes`` splits what is held before a
+prove (SRS points, MSM window tables, the pk's coefficient stacks and
+permutation maps, the witness).  From k=19 on the proves take the sliced
+large path; k=21 and k=22 (full capacity 6,167 and 12,335 blocks at 4
+sets) run as they are:
+
+  python scripts/torch_prove_steady.py --device cuda 22 12335 4 --tagged \
+      --phases --cache-dir none
 
 ``--tables`` first times the tables of the large path at this k, one
 by one (each is cached per process, so the cold prove then runs
 without them).  ``--phases`` times one more prove phase by phase, synchronised
-at every Fiat-Shamir challenge, with each phase's peak device memory.
+at every Fiat-Shamir challenge, with each phase's peak device memory and
+the memory held when it began (printed as each phase ends).
 ``--static-compare N`` then proves 2N more times in turns, with the
 static sub-coset evaluations cached (by this script, for all R
 sub-cosets) and recomputed (what the large path does).
@@ -99,8 +110,11 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--tree", default=REPO,
                     help="checkout to import halo2_aes_tpu_torch from")
+    ap.add_argument("--cache-dir", default="ptau",
+                    help="SRS and key cache directory; 'none' caches nothing")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    cache = None if args.cache_dir == "none" else args.cache_dir
     sys.path.insert(0, os.path.abspath(args.tree))
 
     import numpy as np
@@ -108,7 +122,7 @@ def main() -> int:
 
     from halo2_aes_tpu_torch.backend import prover as PV
     from halo2_aes_tpu_torch.backend import srs as SRS
-    from halo2_aes_tpu_torch.backend.keygen import keygen_cached
+    from halo2_aes_tpu_torch.backend.keygen import keygen, keygen_cached
     from halo2_aes_tpu_torch.backend.verifier import verify
     from halo2_aes_tpu_torch.circuit import witness
     from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
@@ -136,20 +150,36 @@ def main() -> int:
         sync()
         return res, time.perf_counter() - t0
 
+    def step(name, fn, *a, **kw):
+        """fn's result; its seconds and (on a card) peak bytes into out."""
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        res, out[f"{name}_s"] = timed(fn, *a, **kw)
+        if cuda:
+            out[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        print(f"{name}: {out[f'{name}_s']:.2f} s, peak "
+              f"{out.get(f'{name}_peak_bytes', 0) / 1e9:.2f} GB", flush=True)
+        return res
+
     def launches():
         return {"K1": cuda_field.LAUNCHES, "K2": cuda_ntt.LAUNCHES,
                 "K3": cuda_curve.LAUNCHES}
 
-    layout, out["compile_s"] = timed(compile_circuit, AesConfig(
+    layout = step("compile", compile_circuit, AesConfig(
         k=args.k, n_sets=args.sets, n_blocks=args.blocks, tagged_ops=args.tagged))
-    srs, out["setup_s"] = timed(SRS.setup, args.k, dev)
-    pk, out["keygen_s"] = timed(keygen_cached, layout, srs)
+    srs = step("setup", SRS.setup, args.k, dev, cache_dir=cache)
+    if cache is None:
+        pk = step("keygen", keygen, layout, srs)
+    else:
+        pk = step("keygen", keygen_cached, layout, srs, cache_dir=cache)
     rng = np.random.default_rng(0)
     key = torch.as_tensor(rng.integers(0, 256, 16, dtype=np.uint8), device=dev)
     pts = torch.as_tensor(rng.integers(0, 256, (args.blocks, 16), dtype=np.uint8),
                           device=dev)
-    values, out["witness_s"] = timed(
-        lambda: witness.assemble_values(layout, witness.build_pool(key, pts)))
+    values = step("witness", lambda: witness.assemble_values(
+        layout, witness.build_pool(key, pts)))
+    out["held_bytes"] = held_bytes(pk, values)
+    print(f"held: {out['held_bytes']}", flush=True)
     ph = PV._get_phases(pk)
     out["large_path"] = ph.large()
     if args.tables:
@@ -172,7 +202,8 @@ def main() -> int:
 
     for seed, label in ((1, "cold"), (2, "warm"), (3, "steady")):
         proof, out[label] = prove(seed)
-        print(f"prove {label}: {out[label]['s']:.2f} s", flush=True)
+        print(f"prove {label}: {out[label]['s']:.2f} s, peak "
+              f"{out[label].get('peak_bytes', 0) / 1e9:.2f} GB", flush=True)
     if args.proves:
         more = [prove(10 + i)[1] for i in range(args.proves)]
         out["more"] = {"s": [r["s"] for r in more],
@@ -183,7 +214,8 @@ def main() -> int:
     _, out["verify_s"] = timed(verify, pk.vk, proof)
     out["verified"] = True
     if args.phases:
-        out["phases_s"], out["phase_peak_bytes"] = _phases(PV, pk, values, dev, args)
+        (out["phases_s"], out["phase_peak_bytes"],
+         out["phase_held_bytes"]) = _phases(PV, pk, values, dev, args)
     if args.profile:
         from torch_phases import profiled_prove    # beside this script
 
@@ -202,13 +234,35 @@ def main() -> int:
     return 0
 
 
+def held_bytes(pk, values) -> dict:
+    """Device bytes of what a prove finds held: the SRS's points and MSM
+    window tables, the pk's coefficient stacks and permutation maps, and
+    the witness matrix."""
+    def size(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors
+                   if t is not None)
+
+    srs = pk.srs
+    return {"srs_points": size(srs.g1_x, srs.g1_y),
+            "msm_tables": size(getattr(srs, "_msm_tables", None)),
+            "pk_coeffs": size(*pk.fixed_coeffs.values(), pk.sigma_coeffs,
+                              pk.l0_coeffs, pk.l_last_coeffs, pk.l_active_coeffs),
+            "perm_maps": size(*pk.perm_maps),
+            "witness": size(values)}
+
+
 def _phases(PV, pk, values, dev, args):
     from torch_phases import phase_prove       # beside this script
 
     if dev.type != "cuda":
         raise SystemExit("--phases needs a CUDA device")
+
+    def log(label, s, peak, allocated):
+        print(f"phase mark {label}: {s:.3f} s, peak {peak / 1e9:.2f} GB, "
+              f"allocated {allocated / 1e9:.2f} GB", flush=True)
+
     return phase_prove(lambda: PV.prove(pk, values, seed=4,
-                                        lookup_sort=args.lookup_sort), dev)
+                                        lookup_sort=args.lookup_sort), dev, log)
 
 
 def _static_compare(ph, prove, rounds: int) -> dict:

@@ -9,6 +9,7 @@ returns, without the cyclic collector; and with the switch lowered to K
 every golden proof (toys, GWC, packed) comes out byte-identical through
 the sliced path and verifies."""
 
+import dataclasses
 import gc
 import json
 import pathlib
@@ -30,8 +31,12 @@ from halo2_aes_tpu.ops import field as ref_field
 from halo2_aes_tpu.ops import pallas_ntt as ref_pallas_ntt
 from halo2_aes_tpu_torch.backend import keygen, lookup, prover, srs, verifier
 from halo2_aes_tpu_torch.circuit.toys import GOLDEN_PROOFS, K, TOYS
+from halo2_aes_tpu_torch.ops import curve as CV
+from halo2_aes_tpu_torch.ops import cuda_ntt
 from halo2_aes_tpu_torch.ops import field as F
+from halo2_aes_tpu_torch.ops import msm as MSM
 from halo2_aes_tpu_torch.ops import ntt as N
+from halo2_aes_tpu_torch.parallel import comm
 
 torch.set_num_threads(1)
 FR = F.FR
@@ -300,3 +305,56 @@ def test_forced_large_prove_equals_golden(name, srs_pair, monkeypatch):
     assert verifier.verify(pk.vk, proof, instances=instances, multiopen=multiopen)
     assert ref_verifier.verify(_REF_PKS[toy].vk, proof, instances=instances,
                                multiopen=multiopen)
+
+
+def test_max_k_is_the_ntt_reach(srs_pair):
+    """MAX_K is the two-pass NTT's reach, and a vk above it raises before
+    any work (no phases built, no collective on a mesh) with an error
+    that names the third NTT pass and the card's memory."""
+    assert prover.MAX_K == 2 * cuda_ntt.MAX_LT == 22
+    layout, values = TOYS["toy"][0]()
+    pk = keygen.keygen(layout, srs_pair[0])
+    big = dataclasses.replace(pk, vk=dataclasses.replace(pk.vk, k=23))
+    comm.reset_counts()
+    for mesh in (None, comm.Mesh(None, "gloo", 0, 2, torch.device("cpu"))):
+        with pytest.raises(NotImplementedError,
+                           match=r"NTT's reach is k=22.*third NTT pass.*memory"):
+            prover.prove(big, values, seed=1, mesh=mesh)
+    assert not hasattr(big, "_phases")
+    assert sum(comm.CALLS.values()) == 0
+
+
+def test_tableless_commitments_equal_host(monkeypatch):
+    """With TABLELESS_MIN_N lowered to the SRS's size, the SRS builds no
+    window tables and a commitment (``SRS.commit``, ``msm_many`` with
+    tables None) equals the host MSM, as the tabled one does."""
+    s = srs.setup(K, "cpu", cache_dir=None)
+    s.warm_tables()
+    assert s._msm_tables is not None
+    monkeypatch.setattr(MSM, "TABLELESS_MIN_N", s.n)
+    bare = srs.setup(K, "cpu", cache_dir=None)
+    bare.warm_tables()
+    assert bare._msm_tables is None
+    rng = np.random.default_rng(29)
+    polys = [_t(_rand(rng, s.n)) for _ in range(3)]
+    points = keygen._srs_host_points(bare)
+    want = [CV.host_msm(points, FR.decode(p)) for p in polys]
+    assert [CV.to_affine_host(bare.commit(p))[0] for p in polys] == want
+    assert [CV.to_affine_host(s.commit(p))[0] for p in polys] == want
+    flat = F.from_mont(FR, torch.cat(polys))
+    c = MSM.default_window(s.n)
+    assert CV.to_affine_host(MSM.msm_many((bare.g1_x, bare.g1_y), flat, 3, c,
+                                          None)) == want
+
+
+@pytest.mark.parametrize("name", ["toy", "tagged", "toy_gwc"])
+def test_tableless_forced_prove_equals_golden(name, monkeypatch):
+    """Golden proofs with the tableless commitments forced (and the
+    sliced path): the same bytes."""
+    toy, opts = GOLDEN_PROOFS[name]
+    build, seed, _ = TOYS[toy]
+    layout, values = build()
+    monkeypatch.setattr(MSM, "TABLELESS_MIN_N", 1 << K)
+    monkeypatch.setattr(prover, "_LARGE_MIN_K", K)
+    pk = keygen.keygen(layout, srs.setup(K, "cpu", cache_dir=None))
+    assert prover.prove(pk, values, seed=seed, **opts).hex() == GOLDEN[name]["proof"]

@@ -38,7 +38,8 @@ from halo2_aes_tpu.ops import ntt as ref_ntt
 from halo2_aes_tpu.parallel import msm as ref_pmsm
 from halo2_aes_tpu.parallel import ntt as ref_pntt
 from halo2_aes_tpu_torch import native
-from halo2_aes_tpu_torch.backend import keygen, lookup, poly, prover, srs, verifier
+from halo2_aes_tpu_torch.backend import (keygen, lookup, poly, prover, resume, srs,
+                                         verifier)
 from halo2_aes_tpu_torch.circuit.toys import K, TOYS
 from halo2_aes_tpu_torch.ops import aes, curve, msm
 from halo2_aes_tpu_torch.ops import field as F
@@ -61,6 +62,12 @@ JOBS = {
     "prove_c": (2, ["--task", "prove", "--proofs", "onecol,onecol_lookup",
                     "--seedless"]),
     "sliced": (2, ["--task", "prove", "--proofs", "toy", "--sliced"]),
+    # checkpoint/resume: {out} is the job's directory, {rank} the rank's
+    "ckpt": (2, ["--task", "checkpoint", "--checkpoint-dir", "{out}/shared"]),
+    "ckpt_seedless": (2, ["--task", "checkpoint", "--crash-after", "products",
+                          "--seedless", "--checkpoint-dir", "{out}/shared"]),
+    "ckpt_unshared": (2, ["--task", "checkpoint", "--crash-after", "advice",
+                          "--checkpoint-dir", "{out}/rank{rank}"]),
 }
 JOB_OF_PROOF = {"toy": "prove_a", "tagged": "prove_a", "instance": "prove_a",
                 "toy_gwc": "prove_b", "toy_packed": "prove_b", "toy_ipa": "prove_b",
@@ -84,12 +91,19 @@ class _Jobs:
         for name, (size, args) in JOBS.items():
             out = self.root / name
             self.started[name] = comm.RankProcesses(
-                [MODULE, "--device", "cpu", "--out", str(out), *args], size, out)
+                [MODULE, "--device", "cpu", "--out", str(out),
+                 *(a.replace("{out}", str(out)) for a in args)], size, out)
         self.ref_msm = self.pool.submit(_ref_msm)
 
     def results(self, name):
         if name not in self.done:
             self.done[name] = DR.rank_results(self.started[name].wait(TIMEOUT))
+        return self.done[name]
+
+    def raw(self, name):
+        """[(exit code, log)] of a job whose ranks may fail."""
+        if name not in self.done:
+            self.done[name] = self.started[name].wait(TIMEOUT)
         return self.done[name]
 
     def close(self):
@@ -251,15 +265,64 @@ def test_prove_takes_mesh_axis_without_a_mesh(toy_pk):
 
 
 def test_prove_mesh_argument_checks(toy_pk, tmp_path):
-    """A mesh axis the mesh does not have is a ValueError; checkpoints on
-    more than one rank are not supported.  Both raise before any
-    collective."""
+    """A mesh axis the mesh does not have is a ValueError, raised before
+    any collective."""
     pk, values = toy_pk
     mesh = comm.Mesh(None, "gloo", 0, 2, torch.device("cpu"))
     with pytest.raises(ValueError, match="mesh axis"):
         prover.prove(pk, values, seed=1, mesh=mesh, mesh_axis="tp")
-    with pytest.raises(NotImplementedError, match="checkpoint_dir"):
-        prover.prove(pk, values, seed=1, mesh=mesh, checkpoint_dir=str(tmp_path))
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_mesh_checkpoint_dir_must_be_visible(toy_pk, tmp_path, rank):
+    """On a mesh of two ranks, a rank that cannot see checkpoint_dir
+    raises a clear error before any collective (the mesh here has no
+    process group, so a collective would fail otherwise)."""
+    pk, values = toy_pk
+    mesh = comm.Mesh(None, "gloo", rank, 2, torch.device("cpu"))
+    comm.reset_counts()
+    with pytest.raises(FileNotFoundError, match=f"rank {rank}: checkpoint_dir"):
+        prover.prove(pk, values, seed=1, mesh=mesh,
+                     checkpoint_dir=str(tmp_path / "absent"))
+    assert sum(comm.CALLS.values()) == 0
+
+
+@pytest.mark.parametrize("crash_after", resume.PHASES)
+def test_mesh_checkpoint_resume_equals_golden(jobs, crash_after):
+    """At world size 2, a seeded toy prove crashed on every rank right
+    after a phase's checkpoint (rank 0 wrote it, both passed the
+    barrier) resumes on both ranks to the golden bytes without
+    recomputing the saved phases, and success clears the store."""
+    runs = [res["results"]["checkpoint"][crash_after]
+            for res in jobs.results("ckpt")]
+    assert [r["proof"] for r in runs] == [GOLDEN["toy"]["proof"]] * 2
+    assert [r["recomputed"] for r in runs] == [[], []]
+    assert runs[0]["files_left"] == []
+
+
+def test_mesh_checkpoint_resume_seedless(jobs):
+    """seed=None at world size 2, crashed after the products phase and
+    resumed: both ranks return one proof (rank 0's broadcast bytes
+    blind the recomputed phases), and both verifiers accept it."""
+    proofs = [res["results"]["checkpoint"]["products"]["proof"]
+              for res in jobs.results("ckpt_seedless")]
+    assert proofs[0] == proofs[1] != GOLDEN["toy"]["proof"]
+    proof = bytes.fromhex(proofs[0])
+    layout, _ = TOYS["toy"][0]()
+    assert verifier.verify(keygen.keygen(layout, srs.setup(K, "cpu", cache_dir=None)).vk,
+                           proof)
+    ref_layout, _ = TOYS["toy"][0](ref_ir)
+    ref_pk = ref_keygen.keygen(ref_layout, ref_srs.setup(K, cache_dir=None))
+    assert ref_verifier.verify(ref_pk.vk, proof)
+
+
+def test_mesh_checkpoint_unshared_directory_fails(jobs):
+    """Ranks given different (existing) directories fail the handshake
+    before the prove starts: no rank returns, and the error names the
+    rank that cannot see rank 0's file."""
+    runs = jobs.raw("ckpt_unshared")
+    assert all(rc != 0 for rc, _ in runs)
+    assert any("not one directory shared by every rank" in log for _, log in runs)
 
 
 def test_nccl_is_never_replaced_by_gloo(tmp_path):

@@ -156,14 +156,16 @@ def test_bad_witness_rejected(keys):
                         instances=TOYS[name][2])
 
 
-def test_unported_options_raise(keys, monkeypatch):
-    """Checkpoints on a mesh of more than one rank and a k above the
-    port's bound raise NotImplementedError; an unknown multiopen is a
-    ValueError."""
+def test_unported_options_raise(keys, monkeypatch, tmp_path):
+    """A k above the port's bound raises NotImplementedError; an unknown
+    multiopen is a ValueError; checkpoints on a mesh of more than one
+    rank are accepted, and a directory the rank cannot see raises
+    FileNotFoundError before any collective."""
     _, _, _, values, pk, _ = keys
     mesh = comm.Mesh(None, "gloo", 0, 2, torch.device("cpu"))
-    with pytest.raises(NotImplementedError):
-        prover.prove(pk, values, seed=0, mesh=mesh, checkpoint_dir="ck")
+    with pytest.raises(FileNotFoundError, match="checkpoint_dir"):
+        prover.prove(pk, values, seed=0, mesh=mesh,
+                     checkpoint_dir=str(tmp_path / "ck"))
     with pytest.raises(ValueError, match="unknown multiopen"):
         prover.prove(pk, values, seed=0, multiopen="fri")
     monkeypatch.setattr(prover, "MAX_K", K - 1)
