@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one CUDA card.
 
-  python3 chip_smoke.py [golden,mock,ipa,mini,srs_format,mesh,mxu,large_k22]
+  python3 chip_smoke.py [golden,mock,ipa,mini,srs_format,mesh,mxu,large_forced,large_k23]
 
 With no argument every phase runs; with a comma-separated list only the
 device and build phases and the named ones do, and no ok line is printed.
@@ -20,7 +20,10 @@ Phases, each printing one JSON line as it ends:
                 and the card's bound for the same work (K1-K3 also at the
                 k=20 prove's shapes, where one ntt_many must launch K2
                 twice, K1 never and no PyTorch kernel; P1 also at the
-                (16, 2^22) planes that fill the card)
+                (16, 2^22) planes that fill the card); the composed
+                transform (two polys of 2^23 points, two K2 passes; and
+                with the row cap lowered, three passes at 2^17) against
+                the same composition of K2's plain version
   3 golden      the K=6 golden proofs (toy, tagged toy, instance toy;
                 GWC and packed-lookup proofs of the first two; the IPA
                 proofs of the first two against the transparent basis)
@@ -75,21 +78,27 @@ Phases, each printing one JSON line as it ends:
                 verified with the plaintext instances, flipped byte rejected
   9 large       the k >= 19 prove path: the flagship proved once more with
                 the sliced path forced (static evaluations recomputed)
-                equals the ordinary proof byte for byte, and so does one
-                with k=22's commitments forced (no MSM window tables);
-                then, with the
+                equals the ordinary proof byte for byte, and so do one
+                with k=22's commitments forced (no MSM window tables)
+                and one with the k=23 switch forced (the pk's and the
+                prove's stacks parked in pinned host memory) and every
+                transform three or four K2 passes (row cap 6), and the
+                same crashed after its last checkpoint and resumed from
+                checkpoints saved from the parked stacks; then, with the
                 earlier phases' memory freed, the reference prover binary's shape
                 (AES-128, k=20, 4 sets, 3,082 blocks, tagged ops): setup
                 and keygen (cached in ptau/, 3.2 GB), witness, one
                 prove, verify, a flipped byte rejected, peak memory; and
                 a K=6 toy prove crashed after its products phase resumes
                 from its checkpoints to the golden bytes
-    large_k22   the same circuit at k=22 (the NTT's reach), 12,335 blocks
-                (full capacity), nothing cached on disk: setup, keygen,
+    large_k23   the same circuit at k=23, 24,671 blocks (full
+                capacity), nothing cached on disk: setup, keygen,
                 witness, prove, verify, a flipped byte rejected; each
                 step's seconds and peak, the memory held before the
-                prove; the peak over setup, keygen and the prove must
-                stay within 90% of the card's memory
+                prove, the most pinned host bytes the parked stacks held,
+                K2 launches per transform (two at 2^23); the peak over
+                setup, keygen and the prove must stay within 90% of the
+                card's memory
  10 mock        the vectorized MockProver on the card: at the flagship
                 layout and at the reference's mock bench shape (k=17, 2
                 sets, 192 blocks) the witness satisfies every constraint,
@@ -112,7 +121,7 @@ Phases, each printing one JSON line as it ends:
                 the flagship proof verified again through the pure-Python
                 route gives the same verdicts (valid and flipped byte),
                 with the seconds of each route
-Phases 4, 5-8, mxu, mesh, the k=20 prove of 9, large_k22 and 11 each set the launch counts to 0
+Phases 4, 5-8, mxu, mesh, the k=20 prove of 9, large_k23 and 11 each set the launch counts to 0
 before they drive their path and fail if a kernel of the path never
 launched.  Then the card line, the kernels record and, last, the ok
 line.  Any failure raises and the exit code is non-zero.
@@ -120,6 +129,7 @@ line.  Any failure raises and the exit code is non-zero.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -132,10 +142,11 @@ FLAGSHIP_PROOF_BYTES = 5056      # the reference's proof length at this shape
 # the reference prover binary's shape (its src/main.rs: K=20, N=4 column sets;
 # 3,082 blocks as BASELINE.md sizes it)
 LARGE = dict(k=20, n_sets=4, n_blocks=3082, tagged_ops=True)
-# the same circuit at the NTT's reach, k=22, at its full capacity
-LARGE22 = dict(k=22, n_sets=4, n_blocks=12335, tagged_ops=True)
-# the share of the card's memory the k=22 setup, keygen and prove may peak at
-LARGE22_MEM_SHARE = 0.9
+# the same circuit at k=23, at its full capacity: the first k whose idle
+# proof state rests in host memory (backend/rest.py)
+LARGE23 = dict(k=23, n_sets=4, n_blocks=24671, tagged_ops=True)
+# the share of the card's memory the k=23 setup, keygen and prove may peak at
+LARGE23_MEM_SHARE = 0.9
 
 
 def emit(obj) -> None:
@@ -285,16 +296,16 @@ def phase_kernels(dev) -> dict:
         for inverse in (False, True):
             x = _random_field(F.FR, count * n, rng, dev)
             shift = _random_field(F.FR, n, rng, dev)
-            if k <= cuda_ntt.MAX_LT:
+            if k <= N.ROW_CAP:
                 n_inv = F.encode(F.FR, N.domain(F.FR, k).n_inv, dev) if inverse else None
-                steps = [(k, False, shift, n_inv)]
+                steps = [(k, 1, shift, n_inv)]
             else:
                 k1_ = (k + 1) // 2
-                steps = [(k1_, True, shift, N._mid_table(F.FR, k, k1_, inverse, dev)),
-                         (k - k1_, False, None, None)]
-            for lt, transposed, mul_in, mul_out in steps:
+                steps = [(k1_, 1, shift, N._mid_table(F.FR, k, k1_, inverse, dev)),
+                         (k - k1_, 1 << k1_, None, None)]
+            for lt, stride, mul_in, mul_out in steps:
                 tw = N._twiddles(F.FR, lt, inverse, dev)
-                args = (F.FR, x, count, k, lt, tw, transposed, mul_in, mul_out)
+                args = (F.FR, x, count, k, lt, tw, stride, mul_in, mul_out)
                 out = cuda_ntt.ntt_fused(*args)
                 e = err(out, cuda_ntt.ntt_fused_plain(*args))
                 name = f"k{k}_x{count}_lt{lt}_{'inv' if inverse else 'fwd'}"
@@ -322,6 +333,7 @@ def phase_kernels(dev) -> dict:
         want = N.ntt_many(dom, x.cpu(), 3, inverse=inverse, shift_pows=shift.cpu())
         if not torch.equal(got.cpu(), want):
             raise AssertionError("K2: ntt_many at k=12 differs from the host's")
+    k2["composed"] = composed_transforms(dev)
     k2["shape"] = ("k=17 count=4, shift and mid table inside: (1024, 512) + "
                    "(2048, 256) rows x lanes")
     k2.update(k2_bound)
@@ -433,6 +445,65 @@ def phase_kernels(dev) -> dict:
     torch.cuda.synchronize()
     emit({"phase": "kernels", **rec})
     return rec
+
+
+def composed_transforms(dev) -> dict:
+    """The composed transform on the card (K2 launches) against the same
+    composition of K2's plain version on the card, bit-exact: two polys
+    of 2^23 points with a coset shift and inverse (two passes of rows of
+    2^12 and 2^11), and with the row cap lowered to 6, three passes at
+    2^17 (first, middle and last strides); the 2^23 transform timed,
+    with its K2 launches and its bound."""
+    import torch
+
+    from halo2_aes_tpu_torch.ops import cuda_ntt
+    from halo2_aes_tpu_torch.ops import field as F
+    from halo2_aes_tpu_torch.ops import ntt as N
+    from halo2_aes_tpu_torch.ops.timing import time_ms as _time_ms
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    def random_fr(rows):
+        x = torch.randint(0, 1 << 16, (rows, F.LIMBS), generator=gen,
+                          device=dev, dtype=torch.int32)
+        x[:, -1] %= int(F.FR.p_limbs[-1])
+        return x
+
+    out, keep = {}, N.ROW_CAP
+    try:
+        for k, count, cap in ((23, 2, keep), (17, 3, 6)):
+            N.ROW_CAP = cap
+            dom = N.domain(F.FR, k)
+            x, shift = random_fr(count << k), random_fr(1 << k)
+            for inverse, sp in ((False, shift), (True, None)):
+                before = cuda_ntt.LAUNCHES
+                got = N.ntt_many(dom, x, count, inverse=inverse, shift_pows=sp)
+                launches = cuda_ntt.LAUNCHES - before
+                want = N._ntt_flat_composed(dom, x, count, inverse, sp,
+                                            fused=cuda_ntt.ntt_fused_plain)
+                name = f"2^{k}_x{count}_passes{N.pass_lengths(k)}_" + (
+                    "inv" if inverse else "shift")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K2: the composed transform {name} "
+                                         "differs from its plain composition")
+                out[name] = {"max_abs_err": 0, "k2_launches": launches}
+                del got, want
+            if k == 23:
+                lts = N.pass_lengths(k)
+                b = None
+                for t, lt in enumerate(lts):
+                    b = add_bound(b, ntt_pass_bound(
+                        count, k, lt, t == 0, (1 << k) >> sum(lts[:t])
+                        if t < len(lts) - 1 else 0))
+                out["ms_2^23_x2_shift"] = _time_ms(
+                    lambda: N.ntt_many(dom, x, count, shift_pows=shift), 3)
+                out["bound_2^23_x2_shift"] = b
+            del x, shift
+            torch.cuda.empty_cache()
+    finally:
+        N.ROW_CAP = keep
+    return out
 
 
 def same(name: str, got, want) -> int:
@@ -610,10 +681,10 @@ def kernels_k20(dev, rng, p, q, count: int = 45, reps: int = 8) -> dict:
     for inverse in (False, True):
         tw = N._twiddles(F.FR, 10, inverse, dev)
         x = flat
-        for transposed, mul_in, mul_out in (
-                (True, None if inverse else row, N._mid_table(F.FR, 20, 10, inverse, dev)),
-                (False, None, None)):
-            args = (F.FR, x, count, 20, 10, tw, transposed, mul_in, mul_out)
+        for stride, mul_in, mul_out in (
+                (1, None if inverse else row, N._mid_table(F.FR, 20, 10, inverse, dev)),
+                (1 << 10, None, None)):
+            args = (F.FR, x, count, 20, 10, tw, stride, mul_in, mul_out)
             got = cuda_ntt.ntt_fused(*args)
             check("K2", [got], [cuda_ntt.ntt_fused_plain(*args)])
             k2["ms"] += _time_ms(lambda: cuda_ntt.ntt_fused(*args), 10)
@@ -1358,13 +1429,20 @@ def phase_decrypt(srs, dev) -> None:
 def large_forced(pk, values) -> dict:
     """The flagship proved with the large path forced (switch lowered to
     its k, static sub-coset evaluations recomputed by evals_sliced)
-    equals the ordinary proof of the same seed, byte for byte; so does
-    the flagship proved with the k=22 commitments forced (no MSM window
-    tables)."""
+    equals the ordinary proof of the same seed, byte for byte; so do the
+    flagship proved with the k=22 commitments forced (no MSM window
+    tables) and the flagship proved with the k=23 switch forced (the
+    pk's and the prove's coefficient stacks parked in pinned host
+    memory) and the NTT's row cap lowered to 6 (every transform three or
+    four K2 passes), also when that prove is crashed after its last
+    checkpoint and resumed."""
     import torch
 
     from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.backend import resume as RES
+    from halo2_aes_tpu_torch.backend import rest
     from halo2_aes_tpu_torch.ops import msm as MSM
+    from halo2_aes_tpu_torch.ops import ntt as N
 
     ordinary = PV.prove(pk, values, seed=5)
     saved = PV._LARGE_MIN_K
@@ -1396,8 +1474,77 @@ def large_forced(pk, values) -> dict:
         object.__setattr__(srs, "_msm_tables", tables)
     if tableless != ordinary:
         raise AssertionError("large: the k=17 proof without window tables differs")
+    # and the k=23 switch with three-pass transforms
+    # (the pk re-made so that its own stacks rest in host memory too); then
+    # a checkpointed prove of the same, crashed after its last phase was
+    # saved from the parked stacks, resumed from every saved phase
+    saved = PV._LARGE_MIN_K, rest.HOST_REST_MIN_K, N.ROW_CAP
+    PV._LARGE_MIN_K = rest.HOST_REST_MIN_K = pk.vk.k
+    N.ROW_CAP = 6
+    rest.reset()
+    try:
+        pk_rested = dataclasses.replace(pk)
+        if pk_rested.sigma_coeffs.device.type != "cpu":
+            raise AssertionError("large: the forced host-rest pk kept its stacks "
+                                 "on the card")
+        t0 = time.perf_counter()
+        rested = PV.prove(pk_rested, values, seed=5)
+        torch.cuda.synchronize()
+        rested_s = time.perf_counter() - t0
+        checkpointed, resumed = crash_and_resume(
+            pk_rested, values, 5, os.path.join(REPO, "build", "smoke_checkpoints_k17"),
+            RES.PHASES[-1])
+    finally:
+        PV._LARGE_MIN_K, rest.HOST_REST_MIN_K, N.ROW_CAP = saved
+    del pk_rested
+    if rested != ordinary:
+        raise AssertionError("large: the k=17 proof with its stacks in host "
+                             "memory and three-pass transforms differs")
+    if resumed != ordinary:
+        raise AssertionError("large: the k=17 proof resumed from checkpoints of "
+                             "parked stacks differs")
+    if not rest.PINNED["peak_bytes"]:
+        raise AssertionError("large: the forced host-rest prove parked nothing")
     return {"k": pk.vk.k, "identical": True, "sliced_prove_s": sliced_s,
-            "tableless_identical": True, "tableless_prove_s": tableless_s}
+            "tableless_identical": True, "tableless_prove_s": tableless_s,
+            "host_rest_row_cap6_identical": True,
+            "host_rest_row_cap6_prove_s": rested_s,
+            "host_rest_pinned_peak_bytes": rest.PINNED["peak_bytes"],
+            "host_rest_checkpoints_before_resume": checkpointed,
+            "host_rest_resumed_identical": True}
+
+
+def crash_and_resume(pk, values, seed: int, root: str, crash_after: str):
+    """A checkpointed prove crashed right after ``crash_after``'s
+    checkpoint, then the same prove again: (the phases saved before the
+    crash, the resumed proof).  The directory is removed afterwards."""
+    import shutil
+
+    from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.backend import resume as RES
+
+    shutil.rmtree(root, ignore_errors=True)
+    save = RES.ProveCheckpoint.save
+
+    def crashing_save(self, phase, arrays, points, rng=None):
+        save(self, phase, arrays, points, rng)
+        if phase == crash_after:
+            raise RuntimeError(f"crash after {crash_after}")
+
+    RES.ProveCheckpoint.save = crashing_save
+    try:
+        PV.prove(pk, values, seed=seed, checkpoint_dir=root)
+    except RuntimeError as e:
+        if f"crash after {crash_after}" not in str(e):
+            raise
+    else:
+        raise AssertionError("large: the injected crash did not happen")
+    finally:
+        RES.ProveCheckpoint.save = save
+    saved = sorted(os.listdir(os.path.join(root, os.listdir(root)[0])))
+    resumed = PV.prove(pk, values, seed=seed, checkpoint_dir=root)
+    shutil.rmtree(root)
+    return saved, resumed
 
 
 def large_prove(dev, cfg: dict, cache: str | None) -> dict:
@@ -1406,13 +1553,17 @@ def large_prove(dev, cfg: dict, cache: str | None) -> dict:
     prove (field-ordered lookups), verify, a flipped byte rejected.
     Each step's seconds and peak; the peak over setup, keygen and the
     prove; what the prove found held; the launches from setup through
-    the prove."""
+    the prove, and the prove's K2 launches per transform by size; the
+    most pinned host bytes parked stacks held (the pk's and the
+    prove's) and the host's memory."""
     import numpy as np
     import torch
 
     from halo2_aes_tpu_torch.backend import keygen as KG
     from halo2_aes_tpu_torch.backend import poly as P
     from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.backend import rest
+    from halo2_aes_tpu_torch.ops import cuda_ntt
     from halo2_aes_tpu_torch.backend import srs as SRS
     from halo2_aes_tpu_torch.backend import verifier as VF
     from halo2_aes_tpu_torch.circuit import witness
@@ -1454,7 +1605,24 @@ def large_prove(dev, cfg: dict, cache: str | None) -> dict:
     values = timed("witness", lambda: witness.assemble_values(
         layout, witness.build_pool(key, pts)))
     held = torch.cuda.memory_allocated(dev)     # keys, tables, witness
-    proof = timed("prove", PV.prove, pk, values)
+    transforms = {}                             # k -> [calls, K2 launches]
+    composed = N._ntt_flat_composed
+
+    def counted(dom, *a, **kw):
+        before = cuda_ntt.LAUNCHES
+        try:
+            return composed(dom, *a, **kw)
+        finally:
+            rec = transforms.setdefault(dom.k, [0, 0])
+            rec[0] += 1
+            rec[1] += cuda_ntt.LAUNCHES - before
+
+    rest.reset()
+    N._ntt_flat_composed = counted
+    try:
+        proof = timed("prove", PV.prove, pk, values)
+    finally:
+        N._ntt_flat_composed = composed
     counts = read_counts()
     timed("verify", VF.verify, pk.vk, proof)
     if not rejects_flipped_byte(lambda p: VF.verify(pk.vk, p), proof):
@@ -1462,7 +1630,16 @@ def large_prove(dev, cfg: dict, cache: str | None) -> dict:
                              "byte verified")
     require_launched("large", counts, PATH_KERNELS)
     peak = max(peaks[f"{name}_peak_bytes"] for name in ("setup", "keygen", "prove"))
+    with open("/proc/meminfo") as f:
+        meminfo = {ln.split(":")[0]: int(ln.split()[1]) * 1024 for ln in f}
     return {**cfg, **t, **peaks, "blocks_per_s": cfg["n_blocks"] / t["prove_s"],
+            "host_rest": ph.host_rest(),
+            "pinned_peak_bytes": rest.PINNED["peak_bytes"],
+            "host_memory_bytes": {"total": meminfo["MemTotal"],
+                                  "available_after": meminfo["MemAvailable"]},
+            "k2_launches_per_transform": {
+                str(k): [calls, launches / calls]
+                for k, (calls, launches) in sorted(transforms.items())},
             "card_table_equals_host": True,
             "proof_bytes": len(proof), "verified": True,
             "flipped_byte_rejected": True, "peak_mem_bytes": peaks["prove_peak_bytes"],
@@ -1477,33 +1654,37 @@ def large_k20(dev) -> dict:
     return large_prove(dev, LARGE, os.path.join(REPO, "ptau"))
 
 
-def large_k22(dev) -> dict:
-    """The same circuit at k=22, full capacity, nothing cached on disk
-    (the cache would take ~13 GB); the peak over setup, keygen and the
-    prove must stay within LARGE22_MEM_SHARE of the card's memory."""
+def large_k23(dev) -> dict:
+    """The same circuit at k=23, full capacity (24,671 blocks), nothing
+    cached on disk: the pk's and the prove's coefficient stacks rest in
+    pinned host memory, every transform is two K2 passes (rows of 2^12
+    and 2^11), and the commitments run without window tables; the peak
+    over setup, keygen and the prove must stay within LARGE23_MEM_SHARE
+    of the card's memory."""
     import torch
 
-    rec = large_prove(dev, LARGE22, None)
+    rec = large_prove(dev, LARGE23, None)
     total = torch.cuda.get_device_properties(dev).total_memory
     rec["card_total_memory_bytes"] = total
     rec["peak_share_of_card"] = rec["setup_keygen_prove_peak_bytes"] / total
-    if rec["peak_share_of_card"] > LARGE22_MEM_SHARE:
+    if rec["peak_share_of_card"] > LARGE23_MEM_SHARE:
         raise AssertionError(
-            f"large: the k=22 peak is {rec['peak_share_of_card']:.1%} of the "
-            f"card's memory, above {LARGE22_MEM_SHARE:.0%}")
+            f"large: the k=23 peak is {rec['peak_share_of_card']:.1%} of the "
+            f"card's memory, above {LARGE23_MEM_SHARE:.0%}")
     if rec["window_tables"]:
-        raise AssertionError("large: the k=22 SRS built window tables")
+        raise AssertionError("large: the k=23 SRS built window tables")
+    if not rec["host_rest"] or not rec["pinned_peak_bytes"]:
+        raise AssertionError("large: the k=23 prove parked no stack in host memory")
+    if rec["k2_launches_per_transform"].get("23", [0, 0])[1] != 2:
+        raise AssertionError("large: a 2^23 transform was not two K2 launches: "
+                             f"{rec['k2_launches_per_transform']}")
     return rec
 
 
 def large_resume(dev) -> dict:
     """A K=6 toy prove crashed right after its products checkpoint
     resumes from the saved phases to the golden bytes."""
-    import shutil
-
     from halo2_aes_tpu_torch.backend import keygen as KG
-    from halo2_aes_tpu_torch.backend import prover as PV
-    from halo2_aes_tpu_torch.backend import resume as RES
     from halo2_aes_tpu_torch.backend import srs as SRS
     from halo2_aes_tpu_torch.circuit.toys import K, TOYS
 
@@ -1513,28 +1694,9 @@ def large_resume(dev) -> dict:
     build, seed, _ = TOYS["toy"]
     layout, values = build()
     pk = KG.keygen(layout, SRS.setup(K, dev, cache_dir=None))
-    root = os.path.join(REPO, "build", "smoke_checkpoints")
-    shutil.rmtree(root, ignore_errors=True)
-    save = RES.ProveCheckpoint.save
-
-    def crashing_save(self, phase, arrays, points, rng=None):
-        save(self, phase, arrays, points, rng)
-        if phase == "products":
-            raise RuntimeError("crash after products")
-
-    RES.ProveCheckpoint.save = crashing_save
-    try:
-        PV.prove(pk, values, seed=seed, checkpoint_dir=root)
-    except RuntimeError as e:
-        if "crash after products" not in str(e):
-            raise
-    else:
-        raise AssertionError("large: the injected crash did not happen")
-    finally:
-        RES.ProveCheckpoint.save = save
-    saved = sorted(os.listdir(os.path.join(root, os.listdir(root)[0])))
-    resumed = PV.prove(pk, values, seed=seed, checkpoint_dir=root)
-    shutil.rmtree(root)
+    saved, resumed = crash_and_resume(
+        pk, values, seed, os.path.join(REPO, "build", "smoke_checkpoints"),
+        "products")
     if resumed.hex() != golden:
         raise AssertionError("large: the resumed K=6 proof differs from golden")
     return {"checkpoints_before_resume": saved, "resumed_equals_golden": True}
@@ -1879,6 +2041,9 @@ def free() -> None:
 
 def main(only: str = "") -> int:
     sys.path.insert(0, REPO)
+    # the k=23 prove's large stacks among transients fragment the caching
+    # allocator's fixed segments (backend/rest.py); set before the card is used
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     import halo2_aes_tpu_torch.ops.field  # noqa: F401  (the port must be here)
@@ -1889,16 +2054,20 @@ def main(only: str = "") -> int:
     if only:
         # development aid: some of the later phases alone (no ok line)
         for name in only.split(","):
-            if name == "mesh":
+            if name in ("mesh", "large_forced"):
                 _, pk, values, _ = phase_flagship(dev)
-                phase_mesh(pk, values, dev)
+                if name == "mesh":
+                    phase_mesh(pk, values, dev)
+                else:
+                    emit({"phase": "large_forced",
+                          "forced_sliced_k17": large_forced(pk, values)})
                 del pk, values
             else:
                 {"golden": phase_golden, "mock": phase_mock, "ipa": phase_ipa,
                  "mini": phase_mini, "srs_format": phase_srs_format,
                  "mxu": phase_mxu,
-                 "large_k22": lambda d: emit({"phase": "large_k22",
-                                              "k22": large_k22(d)})}[name](dev)
+                 "large_k23": lambda d: emit({"phase": "large_k23",
+                                              "k23": large_k23(d)})}[name](dev)
             free()
         return 0
     rec = phase_kernels(dev)
@@ -1923,7 +2092,7 @@ def main(only: str = "") -> int:
     emit({"phase": "large", "forced_sliced_k17": forced, "k20": large_k20(dev),
           "resume_k6": large_resume(dev)})
     free()
-    emit({"phase": "large_k22", "k22": large_k22(dev)})
+    emit({"phase": "large_k23", "k23": large_k23(dev)})
     free()
     phase_mock(dev)
     free()

@@ -4,7 +4,9 @@
 Keygen lifts the referenced fixed columns to field form, builds the
 permutation assembly from the layout's copy pairs, interpolates
 everything with one batched INTT per group, and commits.  The vk and
-its digest are byte-for-byte the reference's.
+its digest are byte-for-byte the reference's.  From
+``rest.HOST_REST_MIN_K`` on, the pk's coefficient stacks wait in pinned
+host memory (the prover copies back the polys it reads).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from halo2_aes_tpu_torch.backend import permutation as PERM
+from halo2_aes_tpu_torch.backend import rest
 from halo2_aes_tpu_torch.backend.srs import SRS
 from halo2_aes_tpu_torch.backend.transcript import point_to_bytes
 from halo2_aes_tpu_torch.circuit.ir import CompiledCircuit, cs_bytes
@@ -65,6 +68,20 @@ class ProvingKey:
     l0_coeffs: torch.Tensor
     l_last_coeffs: torch.Tensor
     l_active_coeffs: torch.Tensor
+
+    def __post_init__(self):
+        """From ``rest.HOST_REST_MIN_K`` on, the coefficient stacks wait
+        in pinned host memory, however the pk was made (keygen, a cache,
+        ``convert.pk_from_numpy``); the fixed polys and the selectors
+        poly by poly (2^k x 64 B is a power of two, the size the pinned
+        allocator rounds every block up to)."""
+        if rest.on_host(self.vk.k):
+            self.fixed_coeffs = {c: rest.park(v)
+                                 for c, v in self.fixed_coeffs.items()}
+            self.sigma_coeffs = rest.park(self.sigma_coeffs)
+            self.l0_coeffs = rest.park(self.l0_coeffs)
+            self.l_last_coeffs = rest.park(self.l_last_coeffs)
+            self.l_active_coeffs = rest.park(self.l_active_coeffs)
 
     @property
     def device(self):

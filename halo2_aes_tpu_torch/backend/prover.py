@@ -1,7 +1,8 @@
 """The KZG prover with SHPLONK or GWC multiopen (port of
 ``backend/prover.py``).
 
-The single-device path of the reference for k <= MAX_K, with either
+The single-device path of the reference, at every k the field allows
+(ext_k <= Fr's two-adicity, 28: k <= 26 for a degree-5 circuit), with either
 multiopen (``"shplonk"``, ``"gwc"``) and either lookup order
 (``"field"``, ``"packed"``), phase by phase and in the same transcript
 order, so that the same pk, witness and seed give the same proof bytes:
@@ -24,15 +25,20 @@ intra-coset rolls.
 From k = ``_LARGE_MIN_K`` (19) on, the reference's large path runs: the
 quotient's coset NTTs go B polys at a time into one output
 (``evals_sliced``), the static sub-coset evaluations are recomputed
-every proof instead of cached, the lookup grand
-products stream one lookup at a time, the quotient finish and the
-SHPLONK h quotient use size-n sub-coset transforms in place of the 2^(k+2)-
-and 2^(k+1)-point ones, the SHPLONK member fold streams B members at a
-time, and the evaluations go 12 polys per stack.  Each sliced function
-equals its unsliced form bit for bit, so the proof bytes do not depend
-on the switch.  ``checkpoint_dir`` saves each of the phases advice,
-lookup, products and quotient (backend/resume.py); ``HALO2_SANITIZE=1``
-checks their outputs for canonical limbs (utils/sanitize.py).
+every proof instead of cached, the lookup grand products stream one
+lookup at a time, the quotient finish and the SHPLONK h quotient use
+size-n sub-coset transforms in place of the 2^(k+2)- and 2^(k+1)-point
+ones, the SHPLONK member fold streams B members at a time, and the
+evaluations go a few polys per stack (``_EVAL_STACK``).  Each sliced
+function equals its unsliced form bit for bit, so the proof bytes do not
+depend on the switch.  From k = ``rest.HOST_REST_MIN_K`` (23) on, every
+coefficient stack rests in pinned host memory from the phase that makes
+it (the pk's from its making) and its readers copy back the polys they
+take (backend/rest.py), and the forms of ``HOST_REST_FORMS`` keep the
+transients of a phase within one card: the same bytes again.
+``checkpoint_dir`` saves each of the phases advice, lookup, products
+and quotient (backend/resume.py); ``HALO2_SANITIZE=1`` checks their
+outputs for canonical limbs (utils/sanitize.py).
 
 With a ``mesh`` (parallel/comm.py: one process per rank), every batched
 transform goes through the distributed four-step NTT
@@ -54,10 +60,10 @@ from halo2_aes_tpu_torch.backend import lookup as LK
 from halo2_aes_tpu_torch.backend import permutation as PERM
 from halo2_aes_tpu_torch.backend import poly as P
 from halo2_aes_tpu_torch.backend import protocol as PROTO
+from halo2_aes_tpu_torch.backend import rest
 from halo2_aes_tpu_torch.backend import resume as RES
 from halo2_aes_tpu_torch.backend.keygen import ProvingKey, commit_affine, commit_many
 from halo2_aes_tpu_torch.backend.transcript import TranscriptWriter
-from halo2_aes_tpu_torch.ops import cuda_ntt
 from halo2_aes_tpu_torch.ops import curve as CV
 from halo2_aes_tpu_torch.ops import field as F
 from halo2_aes_tpu_torch.ops.ntt import domain, ntt_many
@@ -68,13 +74,21 @@ from halo2_aes_tpu_torch.utils import sanitize as SAN
 FR = F.FR
 LIMBS = F.LIMBS
 _R_LIMBS = F.int_to_limbs(FR.modulus)
-# the NTT's reach: a transform is two K2 passes of rows of at most 2^11
-# points, so k = 22 is the largest k; above it a third pass would be
-# needed, and one 80 GB card would not hold k = 23's proof state
-MAX_K = 2 * cuda_ntt.MAX_LT
 # the sliced phases run from this k on (tests and the chip smoke lower it
 # to hold the sliced path against the unsliced one on small circuits)
 _LARGE_MIN_K = 19
+# Forms each (below rest.HOST_REST_MIN_K, from it): the second keeps a
+# k >= 23 phase's transients within one card (without it k=23's prove
+# peaked at 94-95% of an 80 GB card, or ran out of memory) and costs k=20's
+# prove time (scripts/torch_rest_forms.py; PERF.md §6, PR 12).  Row chunks
+# of each sub-coset's quotient fold on the large path; polys per
+# evaluation stack on the large path (an evaluation's halving adds take
+# ~8x its stack); the field-ordered permuted lookup pairs one lookup at
+# a time (the sort's int64 keys one lookup wide).
+_QUOTIENT_ROW_CHUNKS = (1, 4)
+_EVAL_STACK = (12, 4)
+_STREAMED_PAIRS = (False, True)
+HOST_REST_FORMS = ("_QUOTIENT_ROW_CHUNKS", "_EVAL_STACK", "_STREAMED_PAIRS")
 
 
 def _device_algebra(device):
@@ -300,6 +314,27 @@ class _Phases:
     def encode(self, v):
         return F.encode(FR, v, self.dev)
 
+    def host_rest(self) -> bool:
+        """Whether this pk's idle stacks rest in pinned host memory."""
+        return rest.on_host(self.k)
+
+    def park(self, t):
+        """``t`` where it waits until a reader copies back what it takes."""
+        return rest.park(t) if self.host_rest() else t
+
+    def stack(self, polys):
+        """One FLAT device stack of size-n polys: below the host-rest
+        threshold one ``torch.cat`` of device polys, from it each poly,
+        on the device or parked in host memory, copied into place."""
+        if not self.host_rest():
+            return torch.cat(polys)
+        n = self.n
+        out = torch.empty((len(polys) * n, LIMBS), dtype=torch.int32,
+                          device=self.dev)
+        for i, poly in enumerate(polys):
+            out[i * n:(i + 1) * n].copy_(poly, non_blocking=True)
+        return out
+
     def _ntt_many(self, flat, count: int, inverse: bool, shift_pows=None):
         if self.mesh is None:
             return ntt_many(self.dom, flat, count, inverse=inverse,
@@ -357,7 +392,9 @@ class _Phases:
                      lookup_sort: str):
         u, L = self.usable, self.n_lk
         Ctx = self._column_ctx(all_fld, theta_m)
-        if lookup_sort == "field":
+        if lookup_sort == "field" and _STREAMED_PAIRS[self.host_rest()]:
+            a_prime, s_prime = self._permuted_pairs_streamed(Ctx, bl_a, bl_s)
+        elif lookup_sort == "field":
             a_us = torch.cat([PROTO.compressed_input(Ctx, lk)[:u]
                               for lk in self.cs.lookups])
             s_us = torch.cat([PROTO.compressed_table(Ctx, lk)[:u]
@@ -392,6 +429,27 @@ class _Phases:
         a_coeffs = self._ntt_many(a_prime, L, inverse=True)
         s_coeffs = self._ntt_many(s_prime, L, inverse=True)
         return a_prime, s_prime, a_coeffs, s_coeffs
+
+    def _permuted_pairs_streamed(self, Ctx, bl_a, bl_s):
+        """The field-ordered permuted pairs one lookup at a time (its
+        compressed columns and its sort's int64 keys are the only ones
+        live), into preallocated (L*n, 16) stacks: equal to the batched
+        ``permuted_indices_field_many`` rows."""
+        n, u = self.n, self.usable
+        a_prime = torch.empty((self.n_lk * n, LIMBS), dtype=torch.int32,
+                              device=self.dev)
+        s_prime = torch.empty_like(a_prime)
+        for li, lk in enumerate(self.cs.lookups):
+            a_u = PROTO.compressed_input(Ctx, lk)[:u]
+            s_u = PROTO.compressed_table(Ctx, lk)[:u]
+            a_ord, t_perm = LK.permuted_indices_field(
+                F.from_mont(FR, a_u), F.from_mont(FR, s_u), u)
+            a_prime[li * n:li * n + u] = a_u[a_ord]
+            a_prime[li * n + u:(li + 1) * n] = bl_a[li]
+            s_prime[li * n:li * n + u] = s_u[t_perm]
+            s_prime[li * n + u:(li + 1) * n] = bl_s[li]
+            del a_u, s_u, a_ord, t_perm
+        return a_prime, s_prime
 
     # -- phase 3: grand products -------------------------------------------
 
@@ -435,42 +493,45 @@ class _Phases:
         """Whether this pk's proves take the sliced k >= 19 path."""
         return self.k >= _LARGE_MIN_K
 
-    def evals_sliced(self, keys, coeffs_fn, shift_pows, B: int = 8):
+    def evals_sliced(self, keys, coeffs_fn, shift_pows, B: int = 8, out=None):
         """Sub-coset NTT of the polys ``keys`` (coefficients from
         ``coeffs_fn``), B at a time into one preallocated (len*n, 16)
-        output: the stack, the transform's transposes and its temporaries
-        stay B polys wide.  Equal to one ``ntt_many`` over the whole
-        stack."""
+        output (``out`` where given): the stack, the transform's
+        transposes and its temporaries stay B polys wide.  Equal to one
+        ``ntt_many`` over the whole stack."""
         n = self.n
-        out = torch.empty((len(keys) * n, LIMBS), dtype=torch.int32,
-                          device=self.dev)
+        if out is None:
+            out = torch.empty((len(keys) * n, LIMBS), dtype=torch.int32,
+                              device=self.dev)
         for lo in range(0, len(keys), B):
             sl = keys[lo:lo + B]
-            stack = torch.cat([coeffs_fn(kk) for kk in sl])
+            stack = self.stack([coeffs_fn(kk) for kk in sl])
             out[lo * n:(lo + len(sl)) * n] = self._ntt_many(
                 stack, len(sl), inverse=False, shift_pows=shift_pows)
         return out
 
-    def static_subcoset_evals(self, s: int):
+    def static_subcoset_evals(self, s: int, out=None):
         """Sub-coset evaluations of the proof-independent quotient polys,
         cached per pk per sub-coset.  On the large path they are
-        recomputed by ``evals_sliced`` at every call: at k=20 a cache of
-        all R sub-cosets (9.66 GB) saved no measurable time on one H100
-        and raised the prove's peak by 9.7 GB."""
+        recomputed by ``evals_sliced`` at every call (into ``out`` where
+        given): at k=20 a cache of all R sub-cosets (9.66 GB) saved no
+        measurable time on one H100 and raised the prove's peak by 9.7 GB."""
         shift_pows, _ = _subcoset_tables(self.k, self.ext_k, s, self.dev)
         if self.large():
             return self.evals_sliced(self.q_static_keys, self._coeffs_static,
-                                     shift_pows)
+                                     shift_pows, out=out)
         out = self._static_evals.get(s)
         if out is None:
-            stack = torch.cat([self._coeffs_static(key)
-                               for key in self.q_static_keys])
+            stack = self.stack([self._coeffs_static(key)
+                                for key in self.q_static_keys])
             out = self._ntt_many(stack, len(self.q_static_keys),
                                  inverse=False, shift_pows=shift_pows)
             self._static_evals[s] = out
         return out
 
     def _coeffs_static(self, key):
+        """The pk's coefficient poly of a static quotient key (on the
+        device, or parked in host memory from the threshold on)."""
         pk = self.pk
         kind = key[0]
         if kind == "col":
@@ -517,49 +578,74 @@ class _Phases:
                                  beta_m, gamma_m, y_m, shift_pows, zh_inv,
                                  n_parts: int = 3):
         """The term fold in ``n_parts`` Horner partials joined by
-        y^(hi-lo) bridges, then the Z_H division: equal to
-        ``quotient_subcoset``."""
+        y^(hi-lo) bridges, then the Z_H division, over the
+        ``_QUOTIENT_ROW_CHUNKS`` form's row chunks of the sub-coset: equal
+        to ``quotient_subcoset``."""
         T = self.n_constraint_terms()
         bounds = [round(j * T / n_parts) for j in range(n_parts + 1)]
-        terms = PROTO.constraint_terms(self.cs, self._subcoset_ctx(
-            static_evals, dyn_evals, theta_m, beta_m, gamma_m, shift_pows))
-        acc = None
-        for lo, hi in zip(bounds, bounds[1:]):
-            if lo == hi:
-                continue
-            part = self._quotient_terms_slice(terms, hi - lo, y_m)
-            acc = part if acc is None else F.add(
-                FR, F.mont_mul(FR, acc, F.pow_const(FR, y_m, hi - lo)), part)
-        return F.mont_mul(FR, acc, zh_inv)
+        n = self.n
+        chunks = _QUOTIENT_ROW_CHUNKS[self.host_rest()]
+        out = None
+        for c in range(chunks):
+            rows = None if chunks == 1 else (c * n // chunks, (c + 1) * n // chunks)
+            terms = PROTO.constraint_terms(self.cs, self._subcoset_ctx(
+                static_evals, dyn_evals, theta_m, beta_m, gamma_m, shift_pows,
+                rows))
+            acc = None
+            for lo, hi in zip(bounds, bounds[1:]):
+                if lo == hi:
+                    continue
+                part = self._quotient_terms_slice(terms, hi - lo, y_m)
+                acc = part if acc is None else F.add(
+                    FR, F.mont_mul(FR, acc, F.pow_const(FR, y_m, hi - lo)), part)
+            acc = F.mont_mul(FR, acc, zh_inv)
+            if chunks == 1:
+                return acc
+            if out is None:
+                out = torch.empty((n, LIMBS), dtype=acc.dtype, device=acc.device)
+            out[rows[0]:rows[1]] = acc
+            del terms, acc, part
+        return out
 
     def _subcoset_ctx(self, static_evals, dyn_evals, theta_m, beta_m, gamma_m,
-                      shift_pows):
-        """The protocol Context over one sub-coset's pre-evaluated stacks."""
+                      shift_pows, rows=None):
+        """The protocol Context over one sub-coset's pre-evaluated stacks,
+        or over its rows [lo, hi) where ``rows`` = (lo, hi) is given (a
+        rotation by r reads rows [lo + r, hi + r) mod n: the rows of the
+        rolled column)."""
         n = self.n
+        lo, hi = (0, n) if rows is None else rows
         by_key = {key: static_evals[i * n:(i + 1) * n]
                   for i, key in enumerate(self.q_static_keys)}
         by_key.update({key: dyn_evals[i * n:(i + 1) * n]
                        for i, key in enumerate(self.q_dyn_keys)})
-        pts = F.mont_mul(FR, self.dom.omega_powers(self.dev), shift_pows[1])
+        pts = F.mont_mul(FR, self.dom.omega_powers(self.dev)[lo:hi], shift_pows[1])
         delta_pows = self._delta_pows
         usable = self.usable
 
-        def rot_roll(arr, rot):
-            r = usable if rot == "u" else rot
-            return torch.roll(arr, -r, 0) if r else arr
+        def rot_roll(arr, rot=0):
+            r = (usable if rot == "u" else rot) % n
+            if rows is None:
+                return torch.roll(arr, -r, 0) if r else arr
+            a, b = lo + r, hi + r
+            if b <= n:
+                return arr[a:b]
+            if a >= n:
+                return arr[a - n:b - n]
+            return torch.cat([arr[a:], arr[:b - n]])
 
         return _context(
             alg=self.alg, one=F.const(FR, "one", self.dev),
             theta=theta_m, beta=beta_m, gamma=gamma_m,
-            l0=by_key[("l0",)], l_last=by_key[("l_last",)],
-            l_active=by_key[("l_active",)],
+            l0=rot_roll(by_key[("l0",)]), l_last=rot_roll(by_key[("l_last",)]),
+            l_active=rot_roll(by_key[("l_active",)]),
             column=lambda col, rot: rot_roll(by_key[("col", col)], rot),
             perm_z=lambda t, rot: rot_roll(by_key[("perm_z", t)], rot),
-            sigma=lambda i: by_key[("sigma", i)],
+            sigma=lambda i: rot_roll(by_key[("sigma", i)]),
             perm_id=lambda i: F.mont_mul(FR, delta_pows[i], pts),
             lookup_z=lambda i, rot: rot_roll(by_key[("lookup_z", i)], rot),
             lookup_a=lambda i, rot: rot_roll(by_key[("lookup_a", i)], rot),
-            lookup_s=lambda i: by_key[("lookup_s", i)])
+            lookup_s=lambda i: rot_roll(by_key[("lookup_s", i)]))
 
     def quotient_finish(self, q_flat):
         """Interleave the sub-coset values back to extended-coset order,
@@ -624,9 +710,8 @@ class _Phases:
             acc = None
             for lo in range(idx, idx + sz, B):
                 cnt = min(B, idx + sz - lo)
-                parts = [coeffs_fn(kk) for kk in members[lo:lo + cnt]]
-                # one member: a copy, never a view of the resident poly
-                stack = torch.cat(parts) if cnt > 1 else parts[0].clone()
+                # a copy, never a view of the resident poly
+                stack = self.stack([coeffs_fn(kk) for kk in members[lo:lo + cnt]])
                 part = F.mont_mul(FR, stack.reshape(cnt, n, LIMBS),
                                   w[lo:lo + cnt, None])
                 for i in range(cnt):
@@ -801,8 +886,9 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     by canonical field value) or "packed" (uint32 keys of byte-ranged
     columns; other proof bytes, the same argument).  ``checkpoint_dir``:
     save each heavy phase there and resume a crashed prove at the first
-    incomplete phase (backend/resume.py).  k above MAX_K (the NTT's
-    reach) raises NotImplementedError.
+    incomplete phase (backend/resume.py).  A vk whose extended domain
+    exceeds the field's two-adicity (the reference's ``Domain`` refuses
+    it) raises ValueError before any work.
 
     ``mesh``: a ``parallel.comm.Mesh``; every rank calls ``prove`` with
     the same arguments and gets the same bytes, those of the one-device
@@ -820,12 +906,10 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
         raise ValueError(f"unknown multiopen {multiopen!r}")
     if lookup_sort not in ("field", "packed"):
         raise ValueError(f"unknown lookup_sort {lookup_sort!r}")
-    if pk.vk.k > MAX_K:
-        raise NotImplementedError(
-            f"k={pk.vk.k} > {MAX_K}: the NTT's reach is k={MAX_K} (two K2 passes "
-            f"of rows of at most 2^{cuda_ntt.MAX_LT} points; a larger k needs a "
-            "third NTT pass), and k=23's proof state would not fit one 80 GB "
-            "card's memory")
+    if pk.vk.ext_k > FR.two_adicity:
+        raise ValueError(
+            f"k={pk.vk.k}: the extended domain of 2^{pk.vk.ext_k} points exceeds "
+            f"Fr's two-adicity {FR.two_adicity} (the largest NTT the field has)")
     if lookup_sort == "packed":
         for lk in pk.vk.cs.lookups:
             _check_lookup_packable(pk.layout, lk)
@@ -869,12 +953,14 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
         ck = RES.ProveCheckpoint(checkpoint_dir, RES.prove_key_material(
             vk.digest, values, instances, seed, multiopen, lookup_sort), mesh)
 
-    def restored(st, names):
-        """A loaded phase's tensors (on the device) and points; the RNG
-        continues from the saved state."""
+    def restored(st, names, parked=()):
+        """A loaded phase's tensors (on the device; those named in
+        ``parked`` where they wait) and points; the RNG continues from the
+        saved state."""
         arrays, pts, rng_state = st
         RES.restore_rng(ck_rng, rng_state)
-        return [T(arrays[name]) for name in names], pts
+        return [ph.park(T(arrays[name])) if name in parked else T(arrays[name])
+                for name in names], pts
 
     # ---- phase 1: advice lift + blind + INTT + commits ----------------------
     st = ck.load("advice") if ck else None
@@ -883,12 +969,14 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
         all_fld, adv_coeffs, inst_coeffs = ph.advice_phase(
             values, adv_blinding, torch.as_tensor(inst_arr, device=dev))
         adv_pts = _commit_pts(ph, adv_coeffs, len(ph.adv_ids))
+        adv_coeffs, inst_coeffs = ph.park(adv_coeffs), ph.park(inst_coeffs)
         if ck:
             ck.save("advice", {"all_fld": all_fld, "adv_coeffs": adv_coeffs,
                                "inst_coeffs": inst_coeffs}, adv_pts, ck_rng)
     else:
         (all_fld, adv_coeffs, inst_coeffs), adv_pts = restored(
-            st, ("all_fld", "adv_coeffs", "inst_coeffs"))
+            st, ("all_fld", "adv_coeffs", "inst_coeffs"),
+            ("adv_coeffs", "inst_coeffs"))
     for pt in adv_pts:
         tr.write_point(pt)
     SAN.check_phase(FR, "advice", adv_coeffs=adv_coeffs, inst_coeffs=inst_coeffs)
@@ -909,6 +997,8 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
                 polys += [lk_a_coeffs[i * n:(i + 1) * n],
                           lk_s_coeffs[i * n:(i + 1) * n]]
             lk_pts = commit_many(pk.srs, polys, mesh=mesh)
+            del polys
+            lk_a_coeffs, lk_s_coeffs = ph.park(lk_a_coeffs), ph.park(lk_s_coeffs)
         else:
             lk_ap = lk_sp = lk_a_coeffs = lk_s_coeffs = empty
             lk_pts = []
@@ -918,7 +1008,8 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
                                "lk_s_coeffs": lk_s_coeffs}, lk_pts, ck_rng)
     else:
         (lk_ap, lk_sp, lk_a_coeffs, lk_s_coeffs), lk_pts = restored(
-            st, ("lk_ap", "lk_sp", "lk_a_coeffs", "lk_s_coeffs"))
+            st, ("lk_ap", "lk_sp", "lk_a_coeffs", "lk_s_coeffs"),
+            ("lk_a_coeffs", "lk_s_coeffs"))
     for pt in lk_pts:
         tr.write_point(pt)
     SAN.check_phase(FR, "lookup", a_coeffs=lk_a_coeffs, s_coeffs=lk_s_coeffs)
@@ -953,13 +1044,16 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
             [z_perm_coeffs[t * n:(t + 1) * n] for t in range(ph.chunks)]
             + [lkz_coeffs[i * n:(i + 1) * n] for i in range(ph.n_lk)]
             + [random_coeffs], mesh=mesh)
+        z_perm_coeffs, lkz_coeffs, random_coeffs = map(
+            ph.park, (z_perm_coeffs, lkz_coeffs, random_coeffs))
         if ck:
             ck.save("products", {"z_perm_coeffs": z_perm_coeffs,
                                  "lkz_coeffs": lkz_coeffs,
                                  "random_coeffs": random_coeffs}, prod_pts, ck_rng)
     else:
         (z_perm_coeffs, lkz_coeffs, random_coeffs), prod_pts = restored(
-            st, ("z_perm_coeffs", "lkz_coeffs", "random_coeffs"))
+            st, ("z_perm_coeffs", "lkz_coeffs", "random_coeffs"),
+            ("z_perm_coeffs", "lkz_coeffs", "random_coeffs"))
     for pt in prod_pts:
         tr.write_point(pt)
     SAN.check_phase(FR, "products", z_perm=z_perm_coeffs, lkz=lkz_coeffs,
@@ -971,6 +1065,8 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     y_m = enc(y)
 
     # ---- phase 4: quotient ----------------------------------------------------
+    # (a coefficient poly below is on the device, or parked in host memory
+    # from rest.HOST_REST_MIN_K on: readers copy it into ph.stack)
     def _sl(flat, i):
         return flat[i * n:(i + 1) * n]
 
@@ -996,21 +1092,36 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     st = ck.load("quotient") if ck else None
     if st is None:
         q_subs = []
+        if large:
+            # one buffer for every sub-coset's evaluations, static then
+            # dynamic, allocated before any transient of the phase: tens of
+            # GB in one piece at k >= 23, where a second allocation of it
+            # after the transients failed on a fragmented cache
+            n_static = len(ph.q_static_keys) * n
+            subcoset_evals = torch.empty(
+                (n_static + len(ph.q_dyn_keys) * n, LIMBS), dtype=torch.int32,
+                device=dev)
         for s in range(ph.ratio):
             shift_pows, zh_inv = _subcoset_tables(ph.k, ph.ext_k, s, dev)
             if large:
                 dyn_evals = ph.evals_sliced(ph.q_dyn_keys, coeffs_for,
-                                            shift_pows)
+                                            shift_pows,
+                                            out=subcoset_evals[n_static:])
+                static_evals = ph.static_subcoset_evals(
+                    s, out=subcoset_evals[:n_static])
                 qsub = ph.quotient_subcoset_sliced
             else:
-                dyn_stack = torch.cat([coeffs_for(key) for key in ph.q_dyn_keys])
+                dyn_stack = ph.stack([coeffs_for(key) for key in ph.q_dyn_keys])
                 dyn_evals = ph._ntt_many(dyn_stack, len(ph.q_dyn_keys),
                                          inverse=False, shift_pows=shift_pows)
                 del dyn_stack
+                static_evals = ph.static_subcoset_evals(s)
                 qsub = ph.quotient_subcoset
-            q_subs.append(qsub(ph.static_subcoset_evals(s), dyn_evals, theta_m,
+            q_subs.append(qsub(static_evals, dyn_evals, theta_m,
                                beta_m, gamma_m, y_m, shift_pows, zh_inv))
-            del dyn_evals
+            del dyn_evals, static_evals
+        if large:
+            del subcoset_evals
         finish = ph.quotient_finish_large if large else ph.quotient_finish
         pieces = finish(torch.cat(q_subs))
         del q_subs
@@ -1066,10 +1177,10 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     evals = {}
     for rot, keys in by_rot.items():
         x_m = enc(rot_point(rot))
-        step = 12 if large else len(keys)     # large: 12 polys per stack
+        step = _EVAL_STACK[ph.host_rest()] if large else len(keys)
         for lo in range(0, len(keys), step):
             sl = keys[lo:lo + step]
-            stack = torch.cat([poly_coeffs(kk) for kk in sl])
+            stack = ph.stack([poly_coeffs(kk) for kk in sl])
             vals = ph.eval_many(stack, x_m, len(sl))
             for kk, v in zip(sl, FR.decode(vals)):
                 evals[(kk, rot)] = v
@@ -1095,7 +1206,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
                     # v^j cn (g^n - x^n): fold it into the coefficient-0 term
                     ev = (ev - acc * cn % FR.modulus * (gn - xn)) % FR.modulus
                 acc = acc * v % FR.modulus
-            stack = torch.cat([poly_coeffs(kk) for kk in keys])
+            stack = ph.stack([poly_coeffs(kk) for kk in keys])
             w = ph.gwc_witness(stack, T(vp), enc(ev), enc(rot_point(rot)))
             del stack
             tr.write_point(commit_affine(pk.srs, w, mesh=mesh))
@@ -1148,7 +1259,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     if large:
         poly_flat = ph.shplonk_fold_large(poly_coeffs, members, w_np)
     else:
-        members_flat = torch.cat([poly_coeffs(key) for key in members])
+        members_flat = ph.stack([poly_coeffs(key) for key in members])
         poly_flat = ph.shplonk_fold(members_flat, T(w_np))
         del members_flat
     f_acc = ph.shplonk_f(poly_flat, T(corr_np), T(zcs_np))

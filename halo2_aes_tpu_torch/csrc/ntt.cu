@@ -3,7 +3,7 @@
 // Replaces the Pallas kernel of halo2_aes_tpu/ops/pallas_ntt.py (_pass_fn,
 // _make_kernel, _stages) together with what stood around it: a transform
 // of n = 2^k points per poly is n / T interleaved rows of length
-// T = 2^lt <= 2048 (row `col` of poly `pc` holds the elements
+// T = 2^lt <= 4096 (row `col` of poly `pc` holds the elements
 // pc*n + i*ncols + col, ncols = n / T).  Every row runs all lt radix-2
 // decimation-in-frequency stages on chip: stage s maps
 // (u, v) = (x[lo], x[lo + h]), h = T >> (s + 1), to (u + v, (u - v) * w^(j << s))
@@ -18,12 +18,17 @@
 //  - the pass reads its rows strided straight from the flat natural-order
 //    stack, W adjacent columns a tile (runs of W * 64 contiguous bytes),
 //    multiplies by an optional per-index row on load (the coset shift) and
-//    by an optional table in its epilogue (the mid twiddle with n^-1 folded
-//    in, indexed by tile position; or one scalar), and stores to the place
-//    the next step reads: pass 1 (`transposed`) writes frequency j of column
-//    col to pc*n + col*T + j, pass 2 and the single pass of k <= 11 write
-//    it to pc*n + j*ncols + col, which is natural order.  The bit reversal
-//    is __brev in the store; no transpose, gather or multiply runs outside;
+//    by an optional table in its epilogue (the mid twiddle of the
+//    sub-transform the pass belongs to, with n^-1 folded in on the first
+//    pass, indexed by tile position; or one scalar), and stores to the
+//    place the next pass reads.  With the output stride B = 2^sb (a power
+//    of two dividing ncols), frequency j of column col lands at
+//    pc*n + ((col / B) * T + j) * B + col % B: B = 1 is the first pass of a
+//    composed transform (column-major rows for the next pass), 1 < B < ncols
+//    a middle pass (each of the B interleaved sub-transforms keeps its own
+//    stride), B = ncols the last pass and the single pass of k <= lt, which
+//    write natural order.  The bit reversal is __brev in the store; no
+//    transpose, gather or multiply runs outside;
 //  - twiddles are one table of the T/2 powers of the pass's root, loaded
 //    into shared memory once per block as 8 words an entry (16 KB at
 //    T = 1024); blocks are persistent and walk tiles in poly-fastest
@@ -33,12 +38,14 @@
 //    between rounds: 10 stages in 4 rounds.  Indices are skewed (e + e/8 for
 //    data, e + e/32 for twiddles) so the rounds' strides 1, 8, 64, 512
 //    spread over the banks.
-// A pass that is not `transposed` stores each tile exactly where it was
-// read, and only after all of it is in shared memory, so it may run in
-// place (out == x): the second pass overwrites the first one's output.
+// The last pass (B = ncols) stores each tile exactly where it was read, and
+// only after all of it is in shared memory, so it may run in place
+// (out == x): it overwrites the previous pass's output.  A first or middle
+// pass scatters a tile over other tiles' rows and never runs in place.
 // W is chosen from lt so that two blocks of 256 threads fit one SM (tile +
 // twiddles <= 113 KB) and narrowed while the tiles would not fill the card
-// (a count = 1 transform).  Measured on an H100 (PERF.md,
+// (a count = 1 transform); rows of 4096 (lt = 12: 144 KB of tile and 66 KB
+// of twiddles) fit one block an SM.  Measured on an H100 (PERF.md,
 // scripts/torch_ntt_variants.py): two stages a round are within 1% on a
 // 45 x 2^20 pass pair and 5% slower on one 2^20 transform, one-column
 // tiles 22% slower; three stages and the widths above stay.  At ~4.3e12
@@ -49,6 +56,7 @@
 
 #define NTT_THREADS 256
 #define NTT_R 3  // stages a round: a thread holds 2^NTT_R elements
+#define NTT_MAX_LT 12  // rows of at most 2^12 points
 
 __device__ __forceinline__ int data_skew(int e) { return e + (e >> NTT_R); }
 __device__ __forceinline__ int tw_skew(int e) { return e + (e >> 5); }
@@ -106,7 +114,7 @@ ntt_fused_kernel(int32_t* out, const int32_t* x,  // out may be x, see below
                  const int32_t* __restrict__ tw,
                  const int32_t* __restrict__ mul_in,
                  const int32_t* __restrict__ mul_out, int64_t mul_out_rows,
-                 int64_t count, int k, int lt, int W, int transposed,
+                 int64_t count, int k, int lt, int W, int sb,
                  int64_t ntiles, Modulus m) {
   extern __shared__ uint32_t smem[];
   const int T = 1 << lt;
@@ -171,10 +179,10 @@ ntt_fused_kernel(int32_t* out, const int32_t* x,  // out may be x, see below
     }
     for (int idx = threadIdx.x; idx < W * T; idx += blockDim.x) {
       int c, p;
-      if (transposed) {
+      if (((int64_t)1 << sb) < W) {  // the tile's columns land apart: p fastest
         p = idx & (T - 1);
         c = idx >> lt;
-      } else {
+      } else {  // adjacent columns land adjacent: c fastest
         c = idx & (W - 1);
         p = idx / W;
       }
@@ -185,13 +193,15 @@ ntt_fused_kernel(int32_t* out, const int32_t* x,  // out may be x, see below
       const int pe = c * Tc + data_skew(p);
 #pragma unroll
       for (int w = 0; w < 8; ++w) v[w] = sm[w * S + pe];
+      const int64_t hi = col >> sb;  // the column within its sub-transform
       if (mul_out != nullptr) {
         uint32_t s[8];
-        fe_load(mul_out + ((col * T + p) % mul_out_rows) * 16, s);
+        fe_load(mul_out + (((hi << lt) + p) % mul_out_rows) * 16, s);
         fe_mont_mul(v, v, s, m);
       }
       const int64_t j = lt ? (int64_t)(__brev((unsigned)p) >> (32 - lt)) : 0;
-      const int64_t in_poly = transposed ? col * T + j : j * ncols + col;
+      const int64_t in_poly =
+          (((hi << lt) + j) << sb) + (col & (((int64_t)1 << sb) - 1));
       fe_store(out + (pc * n + in_poly) * 16, v);
     }
   }
@@ -206,12 +216,14 @@ static int ntt_tile_width(int lt, int64_t rows_total, int64_t ncols) {
   return W;
 }
 
+// sb: log2 of the output stride B (0 <= sb <= k - lt), see the kernel
 extern "C" int ntt_fused_launch(void* out, const void* x, const void* tw,
                                 const void* mul_in, const void* mul_out,
                                 int64_t mul_out_rows, int64_t count, int k,
-                                int lt, int transposed, const uint32_t* p,
+                                int lt, int sb, const uint32_t* p,
                                 uint32_t n0, void* stream) {
-  if (lt < 1 || lt > 11 || k < lt || count < 1) return (int)cudaErrorInvalidValue;
+  if (lt < 1 || lt > NTT_MAX_LT || k < lt || count < 1 || sb < 0 || sb > k - lt)
+    return (int)cudaErrorInvalidValue;
   if (mul_out != nullptr && mul_out_rows < 1) return (int)cudaErrorInvalidValue;
   Modulus m = make_modulus(p, n0);
   const int T = 1 << lt;
@@ -238,6 +250,6 @@ extern "C" int ntt_fused_launch(void* out, const void* x, const void* tw,
   ntt_fused_kernel<<<(unsigned)blocks, NTT_THREADS, smem, (cudaStream_t)stream>>>(
       (int32_t*)out, (const int32_t*)x, (const int32_t*)tw,
       (const int32_t*)mul_in, (const int32_t*)mul_out, mul_out_rows, count, k,
-      lt, W, transposed, ntiles, m);
+      lt, W, sb, ntiles, m);
   return (int)cudaGetLastError();
 }

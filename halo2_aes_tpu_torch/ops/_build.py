@@ -41,7 +41,7 @@ SIGNATURES = {
     # out, a, b, n, a_rows, b_rows, p[8] (host), n0inv, stream
     "mont_mul_launch": [_P, _P, _P, _I, _I, _I, _P, _U, _P],
     # out, x, tw, mul_in | NULL, mul_out | NULL, mul_out_rows, count, k, lt,
-    # transposed, p[8] (host), n0inv, stream
+    # log2 of the output stride, p[8] (host), n0inv, stream
     "ntt_fused_launch": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int, _P, _U, _P],
     # x3, y3, z3, then per operand x, y, z, rows, inner, outer; n, p[8]

@@ -1,26 +1,32 @@
 """Number-theoretic transform over BN254 Fr: the port of ``ops/ntt.py``.
 
 Every batched transform runs the four-step decomposition of the
-reference's ``pallas_ntt.ntt_flat`` (pallas_ntt.py:350), on every
-device and at every k:
+reference's ``pallas_ntt.ntt_flat`` (pallas_ntt.py:350), applied
+recursively, on every device and at every k up to the field's
+two-adicity: a transform of n = 2^k points is m = ceil(k / ROW_CAP)
+fused passes of lt_1 + ... + lt_m = k (balanced, the longer first).
+Pass t reads rows of T = 2^lt_t points at stride n / T, multiplies on
+load by the coset shift (first pass only), runs its DIF stages,
+multiplies in its epilogue by the mid twiddle of the sub-transform it
+belongs to (of N_t = 2^(lt_t + ... + lt_m) points: w_N^(c * j), with
+n^-1 folded into the first pass's table for the inverse; the last pass
+takes no table, or n^-1 where it is the only pass), and stores at the
+output stride B_t = 2^(lt_1 + ... + lt_(t-1)), so that sub-transform b of
+the next pass finds its element c at c * B_(t+1) + b and the last pass
+(B_m = n / T_m) writes natural order.  k <= ROW_CAP is one pass, k <=
+2 * ROW_CAP two (the split of earlier versions), and so on.
 
-  k <= 11: one pass of length n per poly, output un-bit-reversed (and
-           times n^-1 for the inverse);
-  k  > 11: n = n1 * n2 with k1 = ceil(k/2): pass of length n1 over the
-           (i2 row, i1 lane) transpose, the mid twiddle w^(i2*k1)
-           (n^-1 folded in for the inverse), pass of length n2 over the
-           transpose back, natural order out.
-
-On a CUDA tensor that is K2 (``cuda_ntt.ntt_fused``) and nothing else:
-one launch for k <= 11, two above.  A transform is bound by its walks
-over device memory (128 B an element and walk), so the coset shift, both
-transposes, the mid twiddle, the output reorder and n^-1 all happen
-inside the two launches: four walks of the stack, where separate
-multiplies, transpose copies and a gather made fourteen.  On a CPU
-tensor the same steps are plain PyTorch ops around
-``cuda_ntt.ntt_pass_plain``.  The NTT is an exact function of its input,
-so the result equals the reference's ``ntt``/``ntt_many`` bit for bit
-whichever path computed it.
+On a CUDA tensor every pass is K2 (``cuda_ntt.ntt_fused``) and nothing
+else.  A transform is bound by its walks over device memory (128 B an
+element and walk), so the coset shift, the transposes, the mid twiddles,
+the output reorder and n^-1 all happen inside the launches.  On a CPU
+tensor the same composition runs through the kernel's plain version
+(``cuda_ntt.ntt_fused_plain``), so tier-1 tests run the card's
+composition; ``ntt_flat_plain`` (shift, transposes, plain passes, a
+gather; at most two passes) is the older composition the tests hold it
+against.  The NTT is an exact function of its input, so the result
+equals the reference's ``ntt``/``ntt_many`` bit for bit whichever path
+computed it.
 """
 
 from __future__ import annotations
@@ -34,6 +40,13 @@ from halo2_aes_tpu_torch.ops import cuda_ntt
 from halo2_aes_tpu_torch.ops import field as F
 
 LIMBS = F.LIMBS
+# the longest row a composed transform's pass takes is 2^ROW_CAP points
+# (tests lower it to run three and four passes on toy sizes).  At 12 a
+# 2^23 or 2^24 transform is two passes: 45 x 2^23 with a shift took
+# 191 ms against 223 ms in three passes of rows of at most 2^11, and one
+# stack less (PERF.md, scripts/torch_kernel_times.py --split-lg 23);
+# k <= 22 splits as at 11, but k = 12 is now one pass
+ROW_CAP = 12
 
 
 def _bitrev(k: int) -> np.ndarray:
@@ -75,17 +88,17 @@ def _stage_tables(spec: F.FieldSpec, lt: int, inverse: bool) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _mid_table(spec: F.FieldSpec, k: int, k1: int, inverse: bool,
-               device) -> torch.Tensor:
+               device, scaled: bool = True) -> torch.Tensor:
     """(n, 16) Montgomery table w^(i2*k1) in pass-1 output order (i2 row,
-    bit-reversed k1 lane) on ``device``; the inverse folds in n^-1
-    (pallas_ntt._mid_table, limbs last).  Gathered from one powers table
-    of w, since w^(i2*j) = w^(i2*j mod n)."""
+    bit-reversed k1 lane) on ``device``; the inverse folds in n^-1 where
+    ``scaled`` (pallas_ntt._mid_table, limbs last).  Gathered from one
+    powers table of w, since w^(i2*j) = w^(i2*j mod n)."""
     n = 1 << k
     idx = (np.arange(n >> k1)[:, None] * _bitrev(k1)[None, :]) % n
     device = torch.device(device)
     out = _powers_table(spec, _root(spec, k, inverse), n, device)[
         torch.from_numpy(idx.reshape(-1)).to(device)]
-    if inverse:
+    if inverse and scaled:
         out = F.mont_mul(spec, out, F.encode(spec, pow(n, -1, spec.modulus), device))
     return out
 
@@ -162,24 +175,38 @@ def _twiddles(spec, lt: int, inverse: bool, device):
                          device)
 
 
-def _ntt_flat_cuda(dom: Domain, flat, count: int, inverse: bool, shift_pows):
-    """The four-step transform as fused K2 launches: one for k <= 11 (the
-    bit reversal and n^-1 inside it), two above (shift on load and mid
-    twiddle in the first, natural-order store in the second)."""
+def pass_lengths(k: int, cap: int | None = None) -> list:
+    """The passes' log row lengths of a 2^k transform: ceil(k / cap)
+    parts, balanced, the longer first."""
+    cap = ROW_CAP if cap is None else cap
+    m = max(1, -(-k // cap))
+    return [k // m + (i < k % m) for i in range(m)]
+
+
+def _ntt_flat_composed(dom: Domain, flat, count: int, inverse: bool,
+                       shift_pows, fused=cuda_ntt.ntt_fused):
+    """The recursive four-step transform as ``pass_lengths(k)`` fused passes
+    (module docstring): the shift on load of the first, the mid twiddles
+    in the epilogues, natural order out of the last, which runs in place
+    on the previous pass's output.  ``fused`` is K2's wrapper, or its
+    plain version for the plain composition on the same device."""
     spec, k, dev = dom.spec, dom.k, flat.device
-    if k <= cuda_ntt.MAX_LT:
-        n_inv = F.encode(spec, dom.n_inv, dev) if inverse else None
-        return cuda_ntt.ntt_fused(spec, flat, count, k, k,
-                                  _twiddles(spec, k, inverse, dev), False,
-                                  mul_in=shift_pows, mul_out=n_inv)
-    k1 = (k + 1) // 2
-    x = cuda_ntt.ntt_fused(spec, flat, count, k, k1,
-                           _twiddles(spec, k1, inverse, dev), True,
-                           mul_in=shift_pows,
-                           mul_out=_mid_table(spec, k, k1, inverse, dev))
-    return cuda_ntt.ntt_fused(spec, x, count, k, k - k1,
-                              _twiddles(spec, k - k1, inverse, dev), False,
-                              in_place=True)
+    lts = pass_lengths(k)
+    x, done = flat, 0
+    for t, lt in enumerate(lts):
+        last = t == len(lts) - 1
+        if not last:       # n^-1 folds into the first table only
+            mid = (spec, k - done, lt, inverse, dev)
+            mul_out = _mid_table(*mid) if t == 0 else _mid_table(*mid, False)
+        elif inverse and t == 0:
+            mul_out = F.encode(spec, dom.n_inv, dev)
+        else:
+            mul_out = None
+        x = fused(spec, x, count, k, lt, _twiddles(spec, lt, inverse, dev),
+                  1 << done, mul_in=shift_pows if t == 0 else None,
+                  mul_out=mul_out, in_place=last and t > 0)
+        done += lt
+    return x
 
 
 def ntt_flat(dom: Domain, flat, count: int, inverse: bool = False,
@@ -187,13 +214,20 @@ def ntt_flat(dom: Domain, flat, count: int, inverse: bool = False,
     """``count`` size-n transforms over a FLAT (count*n, 16) tensor
     (poly i at rows [i*n, (i+1)*n)), natural order in and out;
     ``shift_pows`` (n, 16) first multiplies every poly.  A CUDA tensor
-    goes through K2 alone; a CPU tensor through the plain composition
-    (multiply, transposes, plain passes, gather)."""
+    goes through K2 alone; a CPU tensor through the same composition of
+    the kernel's plain version."""
+    assert flat.shape == (count * dom.n, LIMBS), flat.shape
+    return _ntt_flat_composed(dom, flat.contiguous(), count, inverse, shift_pows)
+
+
+def ntt_flat_plain(dom: Domain, flat, count: int, inverse: bool = False,
+                   shift_pows=None):
+    """The older plain composition, the tests' second witness (k <= 2 *
+    the longest row): shift, transposes, one or two plain passes of the
+    reference's stage tables, the mid twiddle, a gather."""
     spec, k, n = dom.spec, dom.k, dom.n
     assert flat.shape == (count * n, LIMBS), flat.shape
     dev = flat.device
-    if dev.type != "cpu":
-        return _ntt_flat_cuda(dom, flat.contiguous(), count, inverse, shift_pows)
     if shift_pows is not None:
         flat = F.mont_mul(spec, flat.reshape(count, n, LIMBS),
                           shift_pows).reshape(count * n, LIMBS)
@@ -205,6 +239,8 @@ def ntt_flat(dom: Domain, flat, count: int, inverse: bool = False,
         return x.reshape(count * n, LIMBS)
     k1 = (k + 1) // 2
     k2 = k - k1
+    if k1 > cuda_ntt.MAX_LT:
+        raise ValueError(f"ntt_flat_plain: k={k} needs more than two passes")
     n1, n2 = 1 << k1, 1 << k2
     x = flat.reshape(count, n1, n2, LIMBS).transpose(1, 2).reshape(
         count * n2, n1, LIMBS)

@@ -26,13 +26,15 @@ case of ``NTT_CASES`` against the one-device ``ntt_many``; outputs to
 ``--out``); ``msm`` (``msm_sharded`` and ``msm_many_sharded`` with and
 without tables against ``curve.host_msm``); ``prove`` (the golden K=6
 entries named by ``--proofs`` on the mesh, each equal to its golden
-bytes; ``--sliced`` forces the k >= 19 path, ``--seedless`` adds a
-``seed=None`` prove; an IPA entry proves against the transparent
-basis); ``checkpoint`` (toy proves crashed after each phase of
+bytes; ``--sliced`` forces the k >= 19 path, ``--host-rest`` the
+k >= 23 one, ``--seedless`` adds a ``seed=None`` prove; an IPA entry
+proves against the transparent basis); ``checkpoint`` (toy proves crashed after each phase of
 ``--crash-after`` and resumed from ``--checkpoint-dir``, one directory
 every rank sees; ``--seedless`` proves with seed=None); ``mini`` (the
 k=11 mini-AES golden proof); ``ctr`` (a two-chunk k=17 keystream
-bundle).  Each rank prints one JSON line
+bundle).  ``--row-cap`` lowers the transforms' row cap
+(``ops/ntt.ROW_CAP``) for every task, so toy sizes run three and more
+passes.  Each rank prints one JSON line
 last: its results and K1/K2/K3 launches.
 """
 
@@ -341,6 +343,10 @@ def _task_prove(mesh, args) -> dict:
     golden = json.loads((TESTDATA / "golden_k6.json").read_text())
     if args.sliced:
         prover._LARGE_MIN_K = K
+    if args.host_rest:
+        from halo2_aes_tpu_torch.backend import rest
+
+        rest.HOST_REST_MIN_K = K
     s = srs.setup(K, mesh.device, cache_dir=None)
     pks, out = {}, {}
     for name in [p for p in args.proofs.split(",") if p]:
@@ -499,6 +505,11 @@ def main(argv=None) -> int:
                     help="golden K=6 entries of the prove task")
     ap.add_argument("--sliced", action="store_true",
                     help="prove task: force the k >= 19 path")
+    ap.add_argument("--host-rest", action="store_true",
+                    help="prove task: force the k >= 23 path (idle stacks "
+                         "rest in host memory)")
+    ap.add_argument("--row-cap", type=int, default=None,
+                    help="every task: the NTT's row cap (ops/ntt.ROW_CAP)")
     ap.add_argument("--seedless", action="store_true",
                     help="prove task: add a seed=None prove of the toy; "
                          "checkpoint task: prove with seed=None")
@@ -511,6 +522,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="directory for array outputs")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
+    if args.row_cap is not None:
+        from halo2_aes_tpu_torch.ops import ntt as NTT
+
+        NTT.ROW_CAP = args.row_cap
     device = args.device
     if device == "cuda":
         device = f"cuda:{args.rank % torch.cuda.device_count()}"

@@ -8,11 +8,12 @@ exact).  The input is replicated on every rank, as in the prover.  Rank
 r of P owns the column block j2 in [r*n2/P, (r+1)*n2/P):
 
   1. the optional coset shift, on the rank's block (K1 on a card);
-  2. column NTTs of size n1 (``ops/ntt.ntt_many``: one K2 launch);
+  2. column NTTs of size n1 (``ops/ntt.ntt_many``: K2 launches, one
+     while n1 <= 2^ROW_CAP);
   3. the twiddle w^(k1*j2) (K1);
   4. ONE all-to-all, columns -> rows: rank r then owns rows k1 in
      [r*n1/P, (r+1)*n1/P) with every column;
-  5. row NTTs of size n2 (one K2 launch);
+  5. row NTTs of size n2 (K2 launches, as in 2);
   6. ONE all-gather of the row blocks and the transpose: every rank
      holds the whole result in natural order, X[k2*n1 + k1].  (The
      reference's result is replicated by XLA; here it is explicit.)
@@ -20,8 +21,9 @@ r of P owns the column block j2 in [r*n2/P, (r+1)*n2/P):
 With j = j1*n2 + j2 and k = k2*n1 + k1,
   X[k] = sum_j2 w_n2^(j2 k2) (w^(j2 k1) sum_j1 w_n1^(j1 k1) x[j1*n2+j2]);
 w^-1 and the sub-transforms' 1/n1, 1/n2 give the inverse.  Every block
-handed to a transform is a fresh contiguous tensor (K2's second pass
-writes in place), and the result equals ``ops/ntt.ntt_many`` bit for bit.
+handed to a transform is a fresh contiguous tensor (K2's last pass
+writes in place), and the result equals ``ops/ntt.ntt_many`` bit for bit
+at every k the field allows (2^11 x 2^12 at k = 23).
 """
 
 from __future__ import annotations

@@ -20,13 +20,16 @@ recovered plaintext) from an oracle run apart from the witness.
 rerun of a crashed prove resumes at the first incomplete phase.  The
 SRS, its MSM window tables (below 2^22 points; there are none from
 there on) and the keygen commitments are cached in ``ptau/`` (3.2 GB at
-k=20).
+k=20).  From k = 23 on (``backend/rest.py``) the command runs the CUDA
+allocator with expandable segments unless ``PYTORCH_CUDA_ALLOC_CONF``
+says otherwise.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -140,7 +143,13 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main():
+    from halo2_aes_tpu_torch.backend import rest
+
     args = parser().parse_args()
+    if rest.on_host(args.k):
+        # large stacks among transients fragment the caching allocator's
+        # fixed segments (backend/rest.py); set before the card is touched
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     print(json.dumps(run(args.k, args.sets, args.blocks, args.tagged,
                          args.verify, args.device, args.seed,
                          expose_ciphertext=args.expose_ciphertext,

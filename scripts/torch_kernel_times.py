@@ -3,7 +3,7 @@
 shapes of a k=20 prove, on one CUDA card.
 
   python3 scripts/torch_kernel_times.py [--tree DIR] [--lg 20] [--count 45]
-      [--polys 8] [--out FILE]
+      [--polys 8] [--split-lg 23] [--only-splits] [--out FILE]
 
 ``--tree`` imports ``halo2_aes_tpu_torch`` from another checkout (default:
 this one), so two trees can be timed in turns on one card in one run;
@@ -20,6 +20,12 @@ else through ``cuda_ntt.ntt_fused``).  CUDA-event medians
             launch a level
   msm_many  ``polys`` commitments over 2^lg points (SRS and window tables
             cached in ``ptau/``), K3 launches, peak device memory
+  splits    with ``--split-lg L`` (where the tree has ``ops/ntt.ROW_CAP``):
+            count transforms of 2^L with a coset shift, and inverse, at
+            each row cap that gives another split of L (rows of at most
+            2^11: ceil(L / 11) passes; of 2^12: ceil(L / 12)), with the
+            passes' row lengths, K2 launches and peak device memory;
+            ``--only-splits`` times nothing else
 
 Prints one JSON line with the card's name and power limit; ``--out`` also
 writes it to a file.  Imports no JAX.
@@ -67,6 +73,8 @@ def main() -> int:
     ap.add_argument("--lg", type=int, default=20)
     ap.add_argument("--count", type=int, default=45)
     ap.add_argument("--polys", type=int, default=8)
+    ap.add_argument("--split-lg", type=int, default=0)
+    ap.add_argument("--only-splits", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
@@ -95,6 +103,11 @@ def main() -> int:
 
     out = {"tree": os.path.relpath(os.path.abspath(args.tree), REPO),
            "card": card_line(), "lg": lg, "count": count}
+    if args.split_lg:
+        out["splits"] = split_times(N, cuda_ntt, F, random_fr, args.split_lg,
+                                    count, time_ms, dev)
+    if args.only_splits:
+        return _emit(out, args.out)
     a, b = random_fr(n), random_fr(n)
     out["k1_pairs_ms"] = time_ms(lambda: cuda_field.mont_mul(F.FR, a, b), 100)
     stack = random_fr(count * n)
@@ -109,8 +122,10 @@ def main() -> int:
         out["k2_entry"] = "ntt_pass"
     else:
         tws = [N._twiddles(F.FR, lt, inv, dev) for inv in (False, True)]
-        passes = [lambda tw=tw: cuda_ntt.ntt_fused(F.FR, stack, count, lg, lt, tw, False)
-                  for tw in tws]
+        # the natural-order store: an output stride (newer trees) or False
+        natural = 1 << (lg - lt) if hasattr(N, "ROW_CAP") else False
+        passes = [lambda tw=tw: cuda_ntt.ntt_fused(F.FR, stack, count, lg, lt, tw,
+                                                   natural) for tw in tws]
         out["k2_entry"] = "ntt_fused"
     out["k2_pass_pair_ms"] = sum(time_ms(fn, 10) for fn in passes)
 
@@ -163,13 +178,50 @@ def main() -> int:
                        "median_s": sorted(runs)[1],
                        "k3_launches": (cuda_curve.LAUNCHES - before) // 3,
                        "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    return _emit(out, args.out)
+
+
+def _emit(out: dict, path) -> int:
     line = json.dumps(out)
     print(line, flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
             f.write(line + "\n")
     return 0
+
+
+def split_times(N, cuda_ntt, F, random_fr, lg: int, count: int, time_ms,
+                dev) -> dict:
+    """``ntt_many`` of count x 2^lg (shift on load; and inverse) at the row
+    caps 11 and 12, each split's passes, K2 launches and peak memory."""
+    import torch
+
+    keep = N.ROW_CAP
+    stack, row = random_fr(count << lg), random_fr(1 << lg)
+    dom = N.domain(F.FR, lg)
+    out = {}
+    try:
+        for cap in (11, 12):
+            N.ROW_CAP = cap
+            N.ntt_many(dom, stack, count, shift_pows=row)      # tables cached
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = cuda_ntt.LAUNCHES
+            N.ntt_many(dom, stack, count, shift_pows=row)
+            launches = cuda_ntt.LAUNCHES - before
+            out[f"cap{cap}"] = {
+                "passes": N.pass_lengths(lg), "k2_launches": launches,
+                "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                "shift_ms": time_ms(lambda: N.ntt_many(dom, stack, count,
+                                                       shift_pows=row), 2, 3),
+                "inverse_ms": time_ms(lambda: N.ntt_many(dom, stack, count,
+                                                         inverse=True), 2, 3)}
+    finally:
+        N.ROW_CAP = keep
+    del stack, row
+    torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -94,7 +94,8 @@ def main() -> int:
             rec = {"variant": name, "ptxas": [ln.strip() for ln in log[at + 1:at + 4]],
                    "pass_pair_ms": sum(
                        time_ms(lambda tw=tw: cuda_ntt.ntt_fused(
-                           F.FR, stack, count, lg, lt, tw, False), 10) for tw in tws),
+                           F.FR, stack, count, lg, lt, tw, 1 << (lg - lt)), 10)
+                       for tw in tws),
                    "ntt_many_shift_ms": time_ms(
                        lambda: N.ntt_many(dom, stack, count, shift_pows=row), 5),
                    "ntt_one_ms": time_ms(lambda: N.ntt_many(dom, row, 1), 20),

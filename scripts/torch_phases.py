@@ -6,7 +6,9 @@ Imported by ``profile_torch_flagship.py`` and ``torch_prove_steady.py``
 synchronises the device at every Fiat-Shamir challenge, so each interval
 between two challenges is the device time and host time of the prover
 phase that ends there; ``profiled_prove`` runs one prove under
-``torch.profiler``.  Imports no JAX.
+``torch.profiler``; ``memory_map`` names, from the allocator's recorded
+history, the code that allocated what each phase held when it began and
+at its peak.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -100,3 +102,94 @@ def profiled_prove(prove, device) -> dict:
             "device_launches": sum(r[1] for r in rows),
             "top": [{"name": name[:80], "device_ms": us / 1e3, "launches": n}
                     for us, n, name in rows[:25]]}
+
+
+def _site(frames) -> str:
+    """Where a block was allocated: the innermost frame of the prover (the
+    tensor's name there) and the innermost frame of the package below it."""
+    ours = [f for f in frames if "halo2_aes_tpu_torch" in f["filename"]]
+    if not ours:
+        return "(outside the package)"
+
+    def at(f):
+        return f"{f['filename'].rsplit('/', 1)[-1]}:{f['line']} {f['name']}"
+
+    prover = next((f for f in ours if f["filename"].endswith("prover.py")), None)
+    if prover is None or prover is ours[0]:
+        return at(ours[0])
+    return f"{at(prover)} < {at(ours[0])}"
+
+
+def _mark_phase():
+    """An allocation the history shows at a phase boundary."""
+    import torch
+
+    return torch.empty(1, dtype=torch.uint8, device="cuda")
+
+
+def memory_map(prove, device, top: int = 12) -> dict:
+    """Run ``prove()`` with a marker allocated at every Fiat-Shamir
+    challenge, then replay the allocator's history: for each phase, the
+    bytes live when it began and at its peak, each split by the code
+    that allocated them (the ``top`` largest sites).  The history must
+    have been recording since before the first allocation on the device
+    (``torch.cuda.memory._record_memory_history(stacks="python",
+    max_entries=...)`` at the start of the process), with room for every
+    event since."""
+    import torch
+
+    labels = ["start"]
+    _mark_phase()
+
+    def log(label, *_):
+        labels.append(label)
+        _mark_phase()
+
+    oom = None
+    try:
+        phase_prove(prove, device, log)
+    except torch.OutOfMemoryError as e:    # map what was live when it failed
+        oom = str(e).splitlines()[0]
+    trace = torch.cuda.memory._snapshot()["device_traces"][
+        torch.device(device).index or 0]
+    # the phase that begins at each marker: the next one a later challenge ends
+    ends = [PHASE_AT.get(lb) for lb in labels]
+    begins = [next((e for e in ends[i + 1:] if e), None) for i in range(len(ends))]
+    live, by_site, current = {}, {}, 0
+    order, phases, cur, marks = [], {}, None, 0
+    for ev in trace:
+        act, addr, size = ev["action"], ev["addr"], ev["size"]
+        if act == "alloc":
+            frames = ev.get("frames", [])
+            if any(f["name"] == "_mark_phase" for f in frames):
+                cur = begins[marks] if marks < len(begins) else None
+                marks += 1
+                if cur is not None and cur not in phases:
+                    phases[cur] = {"start_bytes": current, "start": dict(by_site),
+                                   "peak_bytes": current, "peak": dict(by_site)}
+                    order.append(cur)
+                continue
+            site = _site(frames)
+            live[addr] = (size, site)
+            by_site[site] = by_site.get(site, 0) + size
+            current += size
+            if cur is not None and current > phases[cur]["peak_bytes"]:
+                phases[cur]["peak_bytes"] = current
+                phases[cur]["peak"] = dict(by_site)
+        elif act == "free_completed":
+            entry = live.pop(addr, None)
+            if entry is not None:
+                by_site[entry[1]] -= entry[0]
+                current -= entry[0]
+
+    def biggest(sites):
+        rows = sorted(((b, s) for s, b in sites.items() if b > 0), reverse=True)
+        return [[s, b] for b, s in rows[:top]]
+
+    out = {p: {"start_bytes": phases[p]["start_bytes"],
+               "start_top": biggest(phases[p]["start"]),
+               "peak_bytes": phases[p]["peak_bytes"],
+               "peak_top": biggest(phases[p]["peak"])} for p in order}
+    if oom is not None:
+        out["out_of_memory"] = oom
+    return out

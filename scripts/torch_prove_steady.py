@@ -3,8 +3,8 @@
 
   python scripts/torch_prove_steady.py --device cuda [k] [blocks] [sets]
       [--tagged] [--lookup-sort field|packed] [--tables] [--phases]
-      [--static-compare N] [--proves N] [--profile] [--tree DIR]
-      [--cache-dir DIR|none] [--out FILE]
+      [--static-compare N] [--proves N] [--profile] [--memory-map]
+      [--tree DIR] [--cache-dir DIR|none] [--out FILE]
 
 The counterpart of ``scripts/prove_steady.py`` (defaults: k=17, 4
 blocks, one column set): compiles the AES-128 circuit, sets up the SRS
@@ -16,10 +16,10 @@ launches, and a verify.  Setup, keygen and the witness each report their
 seconds and peak too, and ``held_bytes`` splits what is held before a
 prove (SRS points, MSM window tables, the pk's coefficient stacks and
 permutation maps, the witness).  From k=19 on the proves take the sliced
-large path; k=21 and k=22 (full capacity 6,167 and 12,335 blocks at 4
-sets) run as they are:
+large path; k=21 to k=23 (full capacity 6,167, 12,335 and 24,671
+blocks at 4 sets) run as they are:
 
-  python scripts/torch_prove_steady.py --device cuda 22 12335 4 --tagged \
+  python scripts/torch_prove_steady.py --device cuda 23 24671 4 --tagged \
       --phases --cache-dir none
 
 ``--tables`` first times the tables of the large path at this k, one
@@ -32,9 +32,17 @@ static sub-coset evaluations cached (by this script, for all R
 sub-cosets) and recomputed (what the large path does).
 ``--proves N`` times N more warm proves and reports their median;
 ``--profile`` runs one more under ``torch.profiler`` (launches and device
-time of every CUDA kernel).  ``--tree`` imports ``halo2_aes_tpu_torch``
-from another checkout (default: this one), so two trees can be timed on
-one card in one run.
+time of every CUDA kernel).  ``--memory-map`` records the allocator's
+history from the start and maps one prove before the others: for each
+phase, the bytes held when it began and at its peak, by the line of the
+package that allocated them (``torch_phases.memory_map``).  Where idle
+stacks rest in pinned host memory (k >= 23, ``backend/rest.py``), each
+prove and each phase also reports the most pinned bytes they held, and
+the run the pinned allocator's own counts (``host_memory_stats``); from
+k=23 the script runs the CUDA allocator with expandable segments unless
+``PYTORCH_CUDA_ALLOC_CONF`` is set (reported as ``alloc_conf``).
+``--tree`` imports ``halo2_aes_tpu_torch`` from another checkout
+(default: this one), so two trees can be timed on one card in one run.
 Prints one JSON line; ``--out`` also writes it to a file.  Imports no
 JAX.
 """
@@ -108,6 +116,7 @@ def main() -> int:
     ap.add_argument("--proves", type=int, default=0, metavar="N",
                     help="N more warm proves, reported with their median")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--memory-map", action="store_true")
     ap.add_argument("--tree", default=REPO,
                     help="checkout to import halo2_aes_tpu_torch from")
     ap.add_argument("--cache-dir", default="ptau",
@@ -115,6 +124,10 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     cache = None if args.cache_dir == "none" else args.cache_dir
+    if args.k >= 23:
+        # from k=23 (backend/rest.py) large stacks among transients fragment
+        # the caching allocator's fixed segments; set before the card is used
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     sys.path.insert(0, os.path.abspath(args.tree))
 
     import numpy as np
@@ -131,9 +144,15 @@ def main() -> int:
 
     dev = resolve_device(args.device)
     cuda = dev.type == "cuda"
+    if args.memory_map:
+        if not cuda:
+            raise SystemExit("--memory-map needs a CUDA device")
+        torch.cuda.memory._record_memory_history(
+            context="alloc", stacks="python", max_entries=4_000_000)
     out = {"tree": os.path.relpath(os.path.abspath(args.tree), REPO),
            "k": args.k, "blocks": args.blocks, "sets": args.sets,
            "tagged": args.tagged, "lookup_sort": args.lookup_sort,
+           "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
            "device": torch.cuda.get_device_name(dev) if cuda else str(dev)}
     if cuda:
         from halo2_aes_tpu_torch.ops.timing import card_line
@@ -165,6 +184,11 @@ def main() -> int:
         return {"K1": cuda_field.LAUNCHES, "K2": cuda_ntt.LAUNCHES,
                 "K3": cuda_curve.LAUNCHES}
 
+    try:                       # where idle stacks rest (trees since it came)
+        from halo2_aes_tpu_torch.backend import rest
+    except ImportError:
+        rest = None
+
     layout = step("compile", compile_circuit, AesConfig(
         k=args.k, n_sets=args.sets, n_blocks=args.blocks, tagged_ops=args.tagged))
     srs = step("setup", SRS.setup, args.k, dev, cache_dir=cache)
@@ -179,6 +203,8 @@ def main() -> int:
     values = step("witness", lambda: witness.assemble_values(
         layout, witness.build_pool(key, pts)))
     out["held_bytes"] = held_bytes(pk, values)
+    if rest is not None:
+        out["host_rest"] = rest.on_host(args.k)
     print(f"held: {out['held_bytes']}", flush=True)
     ph = PV._get_phases(pk)
     out["large_path"] = ph.large()
@@ -190,6 +216,8 @@ def main() -> int:
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
         held = torch.cuda.memory_allocated(dev) if cuda else None
+        if rest is not None:
+            rest.reset()
         before = launches()
         proof, s = timed(PV.prove, pk, values, seed=seed,
                          lookup_sort=args.lookup_sort, **kw)
@@ -198,8 +226,19 @@ def main() -> int:
         if cuda:
             rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
             rec["held_before_bytes"] = held
+        if rest is not None:
+            rec["pinned_peak_bytes"] = rest.PINNED["peak_bytes"]
         return proof, rec
 
+    if args.memory_map:
+        from torch_phases import memory_map        # beside this script
+
+        out["memory_map"] = memory_map(
+            lambda: PV.prove(pk, values, seed=7, lookup_sort=args.lookup_sort), dev)
+        torch.cuda.memory._record_memory_history(enabled=None)
+        print(json.dumps({"memory_map": out["memory_map"]}), flush=True)
+        if "out_of_memory" in out["memory_map"]:
+            raise SystemExit("the mapped prove ran out of device memory")
     for seed, label in ((1, "cold"), (2, "warm"), (3, "steady")):
         proof, out[label] = prove(seed)
         print(f"prove {label}: {out[label]['s']:.2f} s, peak "
@@ -210,12 +249,18 @@ def main() -> int:
                        "median_s": float(np.median([r["s"] for r in more])),
                        "launches": more[-1]["launches"],
                        "peak_bytes": max(r.get("peak_bytes", 0) for r in more)}
+    if cuda and hasattr(torch.cuda, "host_memory_stats"):
+        out["host_memory_stats"] = {
+            k_: v for k_, v in torch.cuda.host_memory_stats().items()
+            if k_.startswith(("allocated_bytes", "reserved_bytes"))}
     out["proof_bytes"] = len(proof)
     _, out["verify_s"] = timed(verify, pk.vk, proof)
     out["verified"] = True
     if args.phases:
+        out["phase_pinned_peak_bytes"] = {}
         (out["phases_s"], out["phase_peak_bytes"],
-         out["phase_held_bytes"]) = _phases(PV, pk, values, dev, args)
+         out["phase_held_bytes"]) = _phases(PV, pk, values, dev, args, rest,
+                                            out["phase_pinned_peak_bytes"])
     if args.profile:
         from torch_phases import profiled_prove    # beside this script
 
@@ -235,31 +280,42 @@ def main() -> int:
 
 
 def held_bytes(pk, values) -> dict:
-    """Device bytes of what a prove finds held: the SRS's points and MSM
-    window tables, the pk's coefficient stacks and permutation maps, and
-    the witness matrix."""
-    def size(*tensors):
+    """Bytes of what a prove finds held: on the device, the SRS's points
+    and MSM window tables, the pk's coefficient stacks and permutation
+    maps, and the witness matrix; in host memory, the pk's coefficient
+    stacks where they rest there (``pk_coeffs_host``)."""
+    def size(*tensors, on="cuda"):
         return sum(t.numel() * t.element_size() for t in tensors
-                   if t is not None)
+                   if t is not None and t.device.type == on)
 
     srs = pk.srs
+    coeffs = (*pk.fixed_coeffs.values(), pk.sigma_coeffs, pk.l0_coeffs,
+              pk.l_last_coeffs, pk.l_active_coeffs)
     return {"srs_points": size(srs.g1_x, srs.g1_y),
             "msm_tables": size(getattr(srs, "_msm_tables", None)),
-            "pk_coeffs": size(*pk.fixed_coeffs.values(), pk.sigma_coeffs,
-                              pk.l0_coeffs, pk.l_last_coeffs, pk.l_active_coeffs),
+            "pk_coeffs": size(*coeffs), "pk_coeffs_host": size(*coeffs, on="cpu"),
             "perm_maps": size(*pk.perm_maps),
             "witness": size(values)}
 
 
-def _phases(PV, pk, values, dev, args):
+def _phases(PV, pk, values, dev, args, rest, pinned: dict):
+    """The phase-by-phase prove; ``pinned`` gets, per challenge, the most
+    pinned host bytes parked stacks held since the one before."""
     from torch_phases import phase_prove       # beside this script
 
     if dev.type != "cuda":
         raise SystemExit("--phases needs a CUDA device")
+    if rest is not None:
+        rest.reset()
 
     def log(label, s, peak, allocated):
+        host = ""
+        if rest is not None:
+            pinned[label] = rest.PINNED["peak_bytes"]
+            host = f", pinned {pinned[label] / 1e9:.2f} GB"
+            rest.reset()
         print(f"phase mark {label}: {s:.3f} s, peak {peak / 1e9:.2f} GB, "
-              f"allocated {allocated / 1e9:.2f} GB", flush=True)
+              f"allocated {allocated / 1e9:.2f} GB{host}", flush=True)
 
     return phase_prove(lambda: PV.prove(pk, values, seed=4,
                                         lookup_sort=args.lookup_sort), dev, log)

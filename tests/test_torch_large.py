@@ -7,7 +7,14 @@ against the reference's and against the rows of ``grand_product_many``;
 the tensors a quotient or lookup-product call reads are freed when it
 returns, without the cyclic collector; and with the switch lowered to K
 every golden proof (toys, GWC, packed) comes out byte-identical through
-the sliced path and verifies."""
+the sliced path and verifies.  So it does with the k >= 23 switch
+lowered (idle stacks resting in host memory, however the pk was made,
+and the k >= 23 forms of ``prover.HOST_REST_FORMS``) and with the NTT's
+row cap lowered (three and more passes a transform); the quotient fold
+over row chunks and the permuted pairs built one lookup at a time equal
+their whole forms; and prove takes every k the reference takes and
+refuses, before any work, the k whose extended domain the field cannot
+transform."""
 
 import dataclasses
 import gc
@@ -29,10 +36,9 @@ from halo2_aes_tpu.backend import verifier as ref_verifier
 from halo2_aes_tpu.circuit import ir as ref_ir
 from halo2_aes_tpu.ops import field as ref_field
 from halo2_aes_tpu.ops import pallas_ntt as ref_pallas_ntt
-from halo2_aes_tpu_torch.backend import keygen, lookup, prover, srs, verifier
+from halo2_aes_tpu_torch.backend import convert, keygen, lookup, prover, rest, srs, verifier
 from halo2_aes_tpu_torch.circuit.toys import GOLDEN_PROOFS, K, TOYS
 from halo2_aes_tpu_torch.ops import curve as CV
-from halo2_aes_tpu_torch.ops import cuda_ntt
 from halo2_aes_tpu_torch.ops import field as F
 from halo2_aes_tpu_torch.ops import msm as MSM
 from halo2_aes_tpu_torch.ops import ntt as N
@@ -307,21 +313,153 @@ def test_forced_large_prove_equals_golden(name, srs_pair, monkeypatch):
                                multiopen=multiopen)
 
 
-def test_max_k_is_the_ntt_reach(srs_pair):
-    """MAX_K is the two-pass NTT's reach, and a vk above it raises before
-    any work (no phases built, no collective on a mesh) with an error
-    that names the third NTT pass and the card's memory."""
-    assert prover.MAX_K == 2 * cuda_ntt.MAX_LT == 22
+class _PastTheGate(Exception):
+    pass
+
+
+def test_max_k_is_the_ntt_reach(srs_pair, monkeypatch):
+    """The NTT reaches every k the field allows, so prove takes what the
+    reference's Domain takes: a vk of k = 23..26 (the AES circuits'
+    ext_k = k + 2 <= Fr's two-adicity 28) gets past the gate to its
+    phases, with and without a mesh; k = 27 raises ValueError, naming
+    the two-adicity, before any work (no phases built, no collective)."""
+    assert F.FR.two_adicity == 28
     layout, values = TOYS["toy"][0]()
     pk = keygen.keygen(layout, srs_pair[0])
-    big = dataclasses.replace(pk, vk=dataclasses.replace(pk.vk, k=23))
+
+    def phases(*a, **kw):
+        raise _PastTheGate
+
+    monkeypatch.setattr(prover, "_get_phases", phases)
     comm.reset_counts()
-    for mesh in (None, comm.Mesh(None, "gloo", 0, 2, torch.device("cpu"))):
-        with pytest.raises(NotImplementedError,
-                           match=r"NTT's reach is k=22.*third NTT pass.*memory"):
+    meshes = (None, comm.Mesh(None, "gloo", 0, 2, torch.device("cpu")))
+    for k in (23, 24, 25, 26):
+        big = dataclasses.replace(pk, vk=dataclasses.replace(pk.vk, k=k, ext_k=k + 2))
+        for mesh in meshes:
+            with pytest.raises(_PastTheGate):
+                prover.prove(big, values, seed=1, mesh=mesh)
+    big = dataclasses.replace(pk, vk=dataclasses.replace(pk.vk, k=27, ext_k=29))
+    for mesh in meshes:
+        with pytest.raises(ValueError, match="two-adicity 28"):
             prover.prove(big, values, seed=1, mesh=mesh)
     assert not hasattr(big, "_phases")
     assert sum(comm.CALLS.values()) == 0
+
+
+@pytest.mark.parametrize("name", ["toy", "tagged", "instance", "toy_gwc",
+                                  "tagged_packed"])
+@pytest.mark.parametrize("cap", [2, 3])
+def test_low_row_cap_prove_equals_golden(name, cap, srs_pair, monkeypatch):
+    """With the NTT's row cap lowered, every K=6 transform (and the
+    extended ones) is three or more composed passes: the golden bytes."""
+    toy, opts = GOLDEN_PROOFS[name]
+    build, seed, _ = TOYS[toy]
+    layout, values = build()
+    monkeypatch.setattr(N, "ROW_CAP", cap)
+    assert len(N.pass_lengths(K)) >= 2
+    pk = keygen.keygen(layout, srs_pair[0])
+    assert prover.prove(pk, values, seed=seed, **opts).hex() == GOLDEN[name]["proof"]
+
+
+@pytest.mark.parametrize("name", ["toy", "tagged", "toy_gwc"])
+def test_low_row_cap_forced_sliced_equals_golden(name, srs_pair, monkeypatch):
+    """The sliced path with three-pass transforms: the golden bytes."""
+    toy, opts = GOLDEN_PROOFS[name]
+    build, seed, _ = TOYS[toy]
+    layout, values = build()
+    monkeypatch.setattr(N, "ROW_CAP", 2)
+    monkeypatch.setattr(prover, "_LARGE_MIN_K", K)
+    pk = keygen.keygen(layout, srs_pair[0])
+    assert prover.prove(pk, values, seed=seed, **opts).hex() == GOLDEN[name]["proof"]
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN_PROOFS))
+def test_host_rest_prove_equals_golden(name, srs_pair, monkeypatch):
+    """With the k >= 23 switch lowered to K (the pk's stacks parked, the
+    prove parking each coefficient stack once made, readers copying back
+    the polys they take, and the k >= 23 forms of HOST_REST_FORMS) on
+    the sliced path, every golden proof comes out byte for byte."""
+    toy, opts = GOLDEN_PROOFS[name]
+    build, seed, _ = TOYS[toy]
+    layout, values = build()
+    monkeypatch.setattr(rest, "HOST_REST_MIN_K", K)
+    monkeypatch.setattr(prover, "_LARGE_MIN_K", K)
+    pk = keygen.keygen(layout, srs_pair[0])
+    ph = prover._get_phases(pk)
+    assert ph.host_rest() and ph.large()
+    assert prover.prove(pk, values, seed=seed, **opts).hex() == GOLDEN[name]["proof"]
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3])
+def test_quotient_row_chunks(phases, chunks, monkeypatch):
+    """The quotient fold over row chunks (rotations reading across a
+    chunk's edge and wrapping past the last row) equals the whole-coset
+    fold and the reference's."""
+    ph, ref = phases
+    rng = np.random.default_rng(31)
+    static = _rand(rng, len(ph.q_static_keys) * ph.n)
+    dyn = _rand(rng, len(ph.q_dyn_keys) * ph.n)
+    scal = [FR.encode(v) for v in (11, 13, 17, 19)]
+    shift, zh_inv = _sub(ph, 2)
+    args = (static, dyn, *scal, shift, zh_inv)
+    whole = ph.quotient_subcoset(*map(_t, args))
+    monkeypatch.setattr(prover, "_QUOTIENT_ROW_CHUNKS", (chunks, chunks))
+    chunked = ph.quotient_subcoset_sliced(*map(_t, args))
+    assert _same(chunked, whole, ref.quotient_subcoset_sliced(*map(jnp.asarray, args)))
+
+
+def test_permuted_pairs_streamed(phases, monkeypatch):
+    """The permuted pairs built one lookup at a time (the k >= 23 form)
+    equal the batched build, and the reference's lookup phase."""
+    ph, ref = phases
+    rng = np.random.default_rng(37)
+    values = TOYS["tagged"][0]()[1]
+    n, L = ph.n, ph.n_lk
+    theta = FR.encode(7)
+    bl = [_rand(rng, L * (n - ph.usable)).reshape(L, n - ph.usable, F.LIMBS)
+          for _ in range(2)]
+    all_fld = F.u16_to_field(FR, torch.as_tensor(values.astype(np.int32)).reshape(-1))
+    args = (torch.as_tensor(values.astype(np.int32)), all_fld, _t(theta),
+            _t(bl[0]), _t(bl[1]), "field")
+    batched = ph.lookup_phase(*args)
+    monkeypatch.setattr(prover, "_STREAMED_PAIRS", (True, True))
+    streamed = ph.lookup_phase(*args)
+    for a, b in zip(batched, streamed):
+        assert torch.equal(a, b)
+    ref_out = ref.lookup_phase(jnp.asarray(values.astype(np.uint32)),
+                               jnp.asarray(F.to_numpy(all_fld)), jnp.asarray(theta),
+                               jnp.asarray(bl[0]), jnp.asarray(bl[1]))
+    assert _same(streamed[0], ref_out[0]) and _same(streamed[2], ref_out[2])
+
+
+@pytest.mark.parametrize("made_by", ["keygen", "pk_from_numpy"])
+def test_pk_stacks_rest_however_made(made_by, srs_pair, monkeypatch):
+    """From the host-rest threshold on, a pk parks every coefficient
+    stack (each fixed poly, the sigma stack, the three selectors) however
+    it was made; below it, none."""
+    layout, _ = TOYS["tagged"][0]()
+    pk = keygen.keygen(layout, srs_pair[0])
+    parked = []
+
+    def park(t):
+        parked.append(t.shape)
+        return t
+
+    monkeypatch.setattr(rest, "park", park)
+
+    def make():
+        if made_by == "keygen":
+            return keygen.keygen(layout, srs_pair[0])
+        return convert.pk_from_numpy(layout, srs_pair[0], **convert.pk_to_numpy(pk))
+
+    make()
+    assert parked == []
+    monkeypatch.setattr(rest, "HOST_REST_MIN_K", K)
+    again = make()
+    n = 1 << K
+    assert parked == ([(n, F.LIMBS)] * len(pk.fixed_coeffs)
+                      + [pk.sigma_coeffs.shape] + [(n, F.LIMBS)] * 3)
+    assert again.vk.digest == pk.vk.digest
 
 
 def test_tableless_commitments_equal_host(monkeypatch):

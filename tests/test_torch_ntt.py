@@ -1,7 +1,8 @@
-"""The port's NTTs (four-step transform + plain pass on CPU) equal the
-reference's, bit for bit: ntt_many and the coset transforms at
-k = 6..12, and at k = 15 the reference's Pallas four-step NTT run in
-interpret mode."""
+"""The port's NTTs (the composed four-step transform, through K2's plain
+version on CPU) equal the reference's, bit for bit: ntt_many and the
+coset transforms at k = 6..12, at k = 15 the reference's Pallas
+four-step NTT run in interpret mode, and with the row cap lowered (three
+to eight passes) the reference and the older two-pass plain route."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -112,8 +113,8 @@ def test_fused_passes_against_pallas_interpret(k, inverse, shift):
                    PN.ntt_flat(dom, shifted, count, inverse=inverse))
     finally:
         PN.set_interpret(False)
-    got = ntt._ntt_flat_cuda(ntt.domain(F.FR, k), F.limbs(a, "cpu"), count,
-                             inverse, None if sp is None else F.limbs(sp, "cpu"))
+    got = ntt._ntt_flat_composed(ntt.domain(F.FR, k), F.limbs(a, "cpu"), count,
+                                 inverse, None if sp is None else F.limbs(sp, "cpu"))
     assert _eq(got, exp)
 
 
@@ -124,29 +125,77 @@ def test_fused_single_pass(k, count, inverse):
     inside it equals the reference's ntt_many."""
     a = _rand(count << k, 60 + k)
     sp = F.FR.host_powers(7, 1 << k)
-    got = ntt._ntt_flat_cuda(ntt.domain(F.FR, k), F.limbs(a, "cpu"), count,
-                             inverse, F.limbs(sp, "cpu"))
+    got = ntt._ntt_flat_composed(ntt.domain(F.FR, k), F.limbs(a, "cpu"), count,
+                                 inverse, F.limbs(sp, "cpu"))
     exp = JN.ntt_many(JN.domain(JF.FR, k), jnp.asarray(a), count,
                       inverse=inverse, shift_pows=jnp.asarray(sp))
     assert _eq(got, exp)
 
 
 def test_fused_plain_is_the_cpu_route():
+    """On CPU tensors the wrapper is the plain version, at every output
+    stride (first, middle and natural-order passes) and with tables."""
     k, lt, count = 6, 3, 2
     x = F.limbs(_rand(count << k, 3), "cpu")
     tw = ntt._twiddles(F.FR, lt, False, "cpu")
-    for transposed in (False, True):
-        assert torch.equal(
-            cuda_ntt.ntt_fused(F.FR, x, count, k, lt, tw, transposed),
-            cuda_ntt.ntt_fused_plain(F.FR, x, count, k, lt, tw, transposed))
+    for stride in (1, 2, 4, 8):
+        mul_out = F.limbs(_rand((1 << k) // stride, 5), "cpu")
+        for table in (None, mul_out):
+            assert torch.equal(
+                cuda_ntt.ntt_fused(F.FR, x, count, k, lt, tw, stride, mul_out=table),
+                cuda_ntt.ntt_fused_plain(F.FR, x, count, k, lt, tw, stride,
+                                         mul_out=table))
 
 
 def test_pass_wrapper_checks_shape():
     x = torch.zeros((2 * 64, 16), dtype=torch.int32, device="meta")
     tw = torch.zeros((4, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):          # 48 twiddles asked of a T=8 pass
-        cuda_ntt.ntt_fused(F.FR, x, 2, 6, 3, tw[:3], False)
+        cuda_ntt.ntt_fused(F.FR, x, 2, 6, 3, tw[:3], 8)
     with pytest.raises(ValueError):          # a meta tensor is no CUDA tensor
-        cuda_ntt.ntt_fused(F.FR, x, 2, 6, 3, tw, False)
+        cuda_ntt.ntt_fused(F.FR, x, 2, 6, 3, tw, 8)
     with pytest.raises(ValueError):
-        cuda_ntt.ntt_fused(F.FR, x, 2, 6, 12, tw, False)
+        cuda_ntt.ntt_fused(F.FR, x, 2, 6, 12, tw, 8)
+    with pytest.raises(ValueError):          # rows longer than 2^MAX_LT
+        cuda_ntt.ntt_fused(F.FR, x, 2, cuda_ntt.MAX_LT + 1, cuda_ntt.MAX_LT + 1,
+                           tw, 1)
+    for stride in (0, 3, 16):                # no power of two dividing 8 columns
+        with pytest.raises(ValueError, match="stride"):
+            cuda_ntt.ntt_fused(F.FR, x, 2, 6, 3, tw, stride)
+    with pytest.raises(ValueError, match="in place"):
+        cuda_ntt.ntt_fused(F.FR, x, 2, 6, 3, tw, 4, in_place=True)
+
+
+@pytest.mark.parametrize("k,cap,want", [
+    (6, 11, [6]), (12, 11, [6, 6]), (17, 11, [9, 8]), (22, 11, [11, 11]),
+    (23, 11, [8, 8, 7]), (23, 12, [12, 11]), (26, 11, [9, 9, 8]),
+    (28, 11, [10, 9, 9]), (8, 3, [3, 3, 2]), (8, 2, [2, 2, 2, 2])])
+def test_pass_lengths(k, cap, want):
+    """ceil(k / cap) passes, balanced, the longer first; at most two up to
+    k = 22 with the card's cap, as before the composition grew."""
+    assert ntt.pass_lengths(k, cap) == want
+    assert ntt.pass_lengths(k, cap) == sorted(want, reverse=True)
+
+
+@pytest.mark.parametrize("cap", [2, 3])
+@pytest.mark.parametrize("k,count", [(4, 2), (6, 1), (7, 3), (8, 2)])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shift", [False, True])
+def test_composed_low_row_cap(monkeypatch, cap, k, count, inverse, shift):
+    """With the row cap lowered (three to four passes: first, middle and
+    last strides, the mid twiddles of every level, n^-1 on the first),
+    ntt_many equals the reference's and the older two-pass plain route."""
+    a = _rand(count << k, 80 + 7 * k + count)
+    sp = F.FR.host_powers(3, 1 << k) if shift else None
+    monkeypatch.setattr(ntt, "ROW_CAP", cap)
+    assert len(ntt.pass_lengths(k)) >= 2
+    dom = ntt.domain(F.FR, k)
+    got = ntt.ntt_many(dom, F.limbs(a, "cpu"), count, inverse=inverse,
+                       shift_pows=None if sp is None else F.limbs(sp, "cpu"))
+    exp = JN.ntt_many(JN.domain(JF.FR, k), jnp.asarray(a), count,
+                      inverse=inverse,
+                      shift_pows=None if sp is None else jnp.asarray(sp))
+    assert _eq(got, exp)
+    assert torch.equal(got, ntt.ntt_flat_plain(
+        dom, F.limbs(a, "cpu"), count, inverse,
+        None if sp is None else F.limbs(sp, "cpu")))

@@ -62,6 +62,10 @@ JOBS = {
     "prove_c": (2, ["--task", "prove", "--proofs", "onecol,onecol_lookup",
                     "--seedless"]),
     "sliced": (2, ["--task", "prove", "--proofs", "toy", "--sliced"]),
+    # the k >= 23 path (idle stacks in host memory) with three-pass NTTs
+    "rested": (2, ["--task", "prove", "--proofs", "toy,tagged", "--sliced",
+                   "--host-rest", "--row-cap", "3"]),
+    "ntt_cap2": (2, ["--task", "ntt", "--row-cap", "2"]),
     # checkpoint/resume: {out} is the job's directory, {rank} the rank's
     "ckpt": (2, ["--task", "checkpoint", "--checkpoint-dir", "{out}/shared"]),
     "ckpt_seedless": (2, ["--task", "checkpoint", "--crash-after", "products",
@@ -176,6 +180,26 @@ def test_ntt_sharded_many_equals_reference(jobs, ref_mesh, size, case):
         assert np.array_equal(got, ref) and np.array_equal(got, serial)
 
 
+@pytest.mark.parametrize("case", DR.NTT_CASES,
+                         ids=[DR.ntt_case_name(*c) for c in DR.NTT_CASES])
+def test_ntt_sharded_low_row_cap_equals_one_device(jobs, ref_mesh, case):
+    """With the row cap lowered to 2 on the ranks (each rank's column and
+    row transforms three and more passes), every rank's whole result
+    equals the one-device ``ntt_many`` at the card's cap and the
+    reference's sharded transform."""
+    k, count, inverse, shifted = case
+    dom = NTT.domain(F.FR, k)
+    shift = F.limbs(DR.ntt_shift(k), "cpu") if shifted else None
+    serial = F.to_numpy(NTT.ntt_many(dom, F.limbs(DR.ntt_input(k, count), "cpu"),
+                                     count, inverse=inverse, shift_pows=shift))
+    jobs.results("ntt_cap2")
+    for r in range(2):
+        got = np.load(jobs.root / "ntt_cap2" / f"ntt_rank{r}.npz")[
+            DR.ntt_case_name(*case)]
+        assert np.array_equal(got, serial)
+        assert np.array_equal(got, _ref_ntt(ref_mesh, case))
+
+
 @pytest.mark.parametrize("size,k", [(3, 6), (16, 6), (32, 9)])
 def test_ntt_sharded_rejects_a_mesh_that_does_not_divide(size, k):
     mesh = comm.Mesh(None, "gloo", 0, size, torch.device("cpu"))
@@ -235,6 +259,15 @@ def test_mesh_prove_forced_sliced_equals_golden(jobs):
     """The k >= 19 path (forced on the toy) on a mesh: the golden bytes."""
     proofs = [res["results"]["prove"]["toy"] for res in jobs.results("sliced")]
     assert proofs == [GOLDEN["toy"]["proof"]] * 2
+
+
+@pytest.mark.parametrize("name", ["toy", "tagged"])
+def test_mesh_prove_host_rest_equals_golden(jobs, name):
+    """The k >= 23 path (forced on the toys: parked stacks on the sliced
+    path) with three-pass transforms on a mesh: the golden bytes on
+    every rank."""
+    proofs = [res["results"]["prove"][name] for res in jobs.results("rested")]
+    assert proofs == [GOLDEN[name]["proof"]] * 2
 
 
 def test_mesh_prove_seedless_is_one_proof_that_verifies(jobs):

@@ -5,6 +5,7 @@ reference produced (scripts/make_torch_golden.py), both verifiers
 accept them, and corrupted proofs, bad witnesses and changed instances
 are rejected."""
 
+import dataclasses
 import json
 import pathlib
 
@@ -157,7 +158,8 @@ def test_bad_witness_rejected(keys):
 
 
 def test_unported_options_raise(keys, monkeypatch, tmp_path):
-    """A k above the port's bound raises NotImplementedError; an unknown
+    """A vk whose extended domain exceeds the field's two-adicity (what
+    the reference's Domain refuses) raises ValueError; an unknown
     multiopen is a ValueError; checkpoints on a mesh of more than one
     rank are accepted, and a directory the rank cannot see raises
     FileNotFoundError before any collective."""
@@ -168,9 +170,10 @@ def test_unported_options_raise(keys, monkeypatch, tmp_path):
                      checkpoint_dir=str(tmp_path / "ck"))
     with pytest.raises(ValueError, match="unknown multiopen"):
         prover.prove(pk, values, seed=0, multiopen="fri")
-    monkeypatch.setattr(prover, "MAX_K", K - 1)
-    with pytest.raises(NotImplementedError, match=f"k={K} > {K - 1}"):
-        prover.prove(pk, values, seed=0)
+    big = dataclasses.replace(pk, vk=dataclasses.replace(
+        pk.vk, ext_k=F.FR.two_adicity + 1))
+    with pytest.raises(ValueError, match=f"k={K}: the extended domain"):
+        prover.prove(big, values, seed=0)
 
 
 def test_instance_toy_changed_instance_rejected(srs_pair):

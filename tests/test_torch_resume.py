@@ -2,9 +2,9 @@
 (the reference's tests/test_prove_verify.py:225-299 and
 tests/test_devtools.py:46-80): a prove crashed after any phase resumes
 from its checkpoints to the golden bytes without recomputing the saved
-phases, checkpoints key on the same bytes as the reference's, and the
-phase-boundary canonicity checks pass honest proves and catch a
-corrupted phase output."""
+phases (also with the k >= 23 path forced), checkpoints key on the same
+bytes as the reference's, and the phase-boundary canonicity checks pass
+honest proves and catch a corrupted phase output."""
 
 import json
 import os
@@ -20,7 +20,7 @@ from halo2_aes_tpu.backend import srs as ref_srs
 from halo2_aes_tpu.backend import verifier as ref_verifier
 from halo2_aes_tpu.circuit import ir as ref_ir
 from halo2_aes_tpu.utils import sanitize as ref_sanitize
-from halo2_aes_tpu_torch.backend import keygen, prover, resume, srs, verifier
+from halo2_aes_tpu_torch.backend import keygen, prover, rest, resume, srs, verifier
 from halo2_aes_tpu_torch.circuit.toys import K, TOYS
 from halo2_aes_tpu_torch.ops import field as F
 from halo2_aes_tpu_torch.utils import sanitize as SAN
@@ -41,10 +41,11 @@ def toy():
     return values, pk, ref_pk, seed
 
 
-# the phase functions that compute each checkpointed phase
+# the phase functions that compute each checkpointed phase (both paths)
 PHASE_FNS = {"advice": ["advice_phase"], "lookup": ["lookup_phase"],
-             "products": ["perm_products", "lookup_products_all"],
-             "quotient": ["quotient_subcoset"]}
+             "products": ["perm_products", "lookup_products_all",
+                          "lookup_products_streamed"],
+             "quotient": ["quotient_subcoset", "quotient_subcoset_sliced"]}
 
 
 @pytest.mark.parametrize("crash_after", resume.PHASES)
@@ -52,6 +53,20 @@ def test_checkpoint_resume(toy, tmp_path, monkeypatch, crash_after):
     """A prove killed right after a phase's checkpoint lands resumes at
     the next phase, replays the Fiat-Shamir absorbs from the saved
     points, and gives the golden bytes; success clears the checkpoint."""
+    _crash_and_resume(toy, tmp_path, monkeypatch, crash_after)
+
+
+@pytest.mark.parametrize("crash_after", resume.PHASES)
+def test_checkpoint_resume_host_rest(toy, tmp_path, monkeypatch, crash_after):
+    """The same with the k >= 23 switch forced (coefficient stacks saved
+    from and restored to where they rest) on the sliced path: the golden
+    bytes."""
+    monkeypatch.setattr(rest, "HOST_REST_MIN_K", K)
+    monkeypatch.setattr(prover, "_LARGE_MIN_K", K)
+    _crash_and_resume(toy, tmp_path, monkeypatch, crash_after)
+
+
+def _crash_and_resume(toy, tmp_path, monkeypatch, crash_after):
     values, pk, ref_pk, seed = toy
     orig_save = resume.ProveCheckpoint.save
 
