@@ -28,6 +28,7 @@ from halo2_aes_tpu_torch.ops import field as F
 from halo2_aes_tpu_torch.ops import msm as MSM
 from halo2_aes_tpu_torch.ops.ntt import domain, ntt_many
 from halo2_aes_tpu_torch.parallel import msm as PMSM
+from halo2_aes_tpu_torch.utils import timers
 
 FR = F.FR
 
@@ -94,7 +95,14 @@ def commit_affine(srs: SRS, coeffs, mesh=None):
     Toy domains (n <= 512) fold on the host with python bigints, as the
     reference's keygen does; the affine result is the same point the
     device MSM gives.  With a ``mesh`` (parallel/comm.py) the sharded MSM
-    commits at every n, as the reference's mesh prover does."""
+    commits at every n, as the reference's mesh prover does.  Each call
+    of this and of ``commit_many`` is one ``commit`` span
+    (utils/timers.py): its polys, and the SRS points an MSM takes."""
+    with timers.span("commit", polys=1, points=srs.n):
+        return _commit_one(srs, coeffs, mesh)
+
+
+def _commit_one(srs: SRS, coeffs, mesh=None):
     if mesh is not None:
         return PMSM.commit(mesh, srs, coeffs)
     if srs.n <= 512:
@@ -113,10 +121,15 @@ def commit_many(srs: SRS, polys, mesh=None) -> list:
     up to COMMIT_BATCH at a time, so each tree level of the MSM is one
     batched point add for the whole group.  With a ``mesh``, every group
     is one sharded ``msm_many`` and one all-gather, at every n."""
+    with timers.span("commit", polys=len(polys), points=srs.n):
+        return _commit_many(srs, polys, mesh)
+
+
+def _commit_many(srs: SRS, polys, mesh):
     if mesh is not None:
         return PMSM.commit_many(mesh, srs, polys, COMMIT_BATCH)
     if srs.n <= 512 or len(polys) < 2:
-        return [commit_affine(srs, p) for p in polys]
+        return [_commit_one(srs, p) for p in polys]
     srs.warm_tables()
     # without window tables (MSM.TABLELESS_MIN_N) a batch saves nothing:
     # one commitment at a time keeps one poly's scalars and digits live

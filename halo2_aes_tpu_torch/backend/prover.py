@@ -45,6 +45,12 @@ transform goes through the distributed four-step NTT
 (parallel/ntt.py) and every commitment, at every n, through the
 point-sharded MSM (parallel/msm.py); everything else runs replicated on
 each rank, which returns the one-device proof bytes.
+
+A prove is one ``prove`` span (utils/timers.py: recorded only while a
+profiler runs or inside ``timers.recording()``) split into the phase
+spans of ``PHASE_SPANS``; the quotient's sub-coset evaluations, term
+fold and finish, every transform (``ntt``) and every commitment
+(``commit``) are spans inside them.
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ from halo2_aes_tpu_torch.ops.ntt import domain, ntt_many
 from halo2_aes_tpu_torch.parallel import comm
 from halo2_aes_tpu_torch.parallel import ntt as PNTT
 from halo2_aes_tpu_torch.utils import sanitize as SAN
+from halo2_aes_tpu_torch.utils import timers
 
 FR = F.FR
 LIMBS = F.LIMBS
@@ -89,6 +96,14 @@ _QUOTIENT_ROW_CHUNKS = (1, 4)
 _EVAL_STACK = (12, 4)
 _STREAMED_PAIRS = (False, True)
 HOST_REST_FORMS = ("_QUOTIENT_ROW_CHUNKS", "_EVAL_STACK", "_STREAMED_PAIRS")
+# the spans that split a prove (the root span "prove") into its phases,
+# each closed right after the Fiat-Shamir challenges that end it: advice
+# at theta, the permuted lookup pairs at beta and gamma, the grand
+# products at y, the quotient at x, the evaluations at v (SHPLONK
+# squeezes y2 first); then SHPLONK's h at u and its L at the end, or
+# GWC's witnesses (gwc_open) or IPA's opening (ipa_open) at the end
+PHASE_SPANS = ("advice", "lookup_permuted", "grand_products", "quotient", "evals",
+               "shplonk_h", "shplonk_l", "gwc_open", "ipa_open")
 
 
 def _device_algebra(device):
@@ -900,6 +915,17 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     IPA on a mesh shards the commitments before
     the opening and runs the opening's rounds on each rank's device, as
     the reference does."""
+    with timers.span("prove", k=pk.vk.k, multiopen=multiopen), \
+            timers.Steps() as phase:
+        return _prove(phase, pk, values, instances, seed, mesh, mesh_axis,
+                      multiopen, lookup_sort, checkpoint_dir)
+
+
+def _prove(phase, pk, values, instances, seed, mesh, mesh_axis, multiopen,
+           lookup_sort, checkpoint_dir) -> bytes:
+    """``prove``'s body; ``phase(name)`` closes the open phase span and
+    opens the next (PHASE_SPANS)."""
+    phase("advice")
     if mesh is not None and mesh_axis != mesh.axis:
         raise ValueError(f"mesh axis {mesh_axis!r}; the mesh has {mesh.axis!r}")
     if multiopen not in ("shplonk", "gwc", "ipa"):
@@ -982,6 +1008,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     SAN.check_phase(FR, "advice", adv_coeffs=adv_coeffs, inst_coeffs=inst_coeffs)
 
     theta = tr.squeeze_challenge()
+    phase("lookup_permuted")
     theta_m = enc(theta)
 
     # ---- phase 2: lookup permuted pairs ---------------------------------------
@@ -1016,6 +1043,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
 
     beta = tr.squeeze_challenge()
     gamma = tr.squeeze_challenge()
+    phase("grand_products")
     beta_m, gamma_m = enc(beta), enc(gamma)
 
     # ---- phase 3: grand products + random poly --------------------------------
@@ -1062,6 +1090,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     del all_fld, lk_ap, lk_sp
 
     y = tr.squeeze_challenge()
+    phase("quotient")
     y_m = enc(y)
 
     # ---- phase 4: quotient ----------------------------------------------------
@@ -1101,29 +1130,34 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
             subcoset_evals = torch.empty(
                 (n_static + len(ph.q_dyn_keys) * n, LIMBS), dtype=torch.int32,
                 device=dev)
+        n_polys = len(ph.q_dyn_keys) + len(ph.q_static_keys)
         for s in range(ph.ratio):
             shift_pows, zh_inv = _subcoset_tables(ph.k, ph.ext_k, s, dev)
-            if large:
-                dyn_evals = ph.evals_sliced(ph.q_dyn_keys, coeffs_for,
-                                            shift_pows,
-                                            out=subcoset_evals[n_static:])
-                static_evals = ph.static_subcoset_evals(
-                    s, out=subcoset_evals[:n_static])
-                qsub = ph.quotient_subcoset_sliced
-            else:
-                dyn_stack = ph.stack([coeffs_for(key) for key in ph.q_dyn_keys])
-                dyn_evals = ph._ntt_many(dyn_stack, len(ph.q_dyn_keys),
-                                         inverse=False, shift_pows=shift_pows)
-                del dyn_stack
-                static_evals = ph.static_subcoset_evals(s)
-                qsub = ph.quotient_subcoset
-            q_subs.append(qsub(static_evals, dyn_evals, theta_m,
-                               beta_m, gamma_m, y_m, shift_pows, zh_inv))
+            with timers.span("quotient.subcoset_evals", polys=n_polys):
+                if large:
+                    dyn_evals = ph.evals_sliced(ph.q_dyn_keys, coeffs_for,
+                                                shift_pows,
+                                                out=subcoset_evals[n_static:])
+                    static_evals = ph.static_subcoset_evals(
+                        s, out=subcoset_evals[:n_static])
+                    qsub = ph.quotient_subcoset_sliced
+                else:
+                    dyn_stack = ph.stack([coeffs_for(key) for key in ph.q_dyn_keys])
+                    dyn_evals = ph._ntt_many(dyn_stack, len(ph.q_dyn_keys),
+                                             inverse=False, shift_pows=shift_pows)
+                    del dyn_stack
+                    static_evals = ph.static_subcoset_evals(s)
+                    qsub = ph.quotient_subcoset
+            # the Horner fold of the constraint terms and the Z_H division
+            with timers.span("quotient.terms", terms=ph.n_constraint_terms()):
+                q_subs.append(qsub(static_evals, dyn_evals, theta_m,
+                                   beta_m, gamma_m, y_m, shift_pows, zh_inv))
             del dyn_evals, static_evals
         if large:
             del subcoset_evals
         finish = ph.quotient_finish_large if large else ph.quotient_finish
-        pieces = finish(torch.cat(q_subs))
+        with timers.span("quotient.finish"):
+            pieces = finish(torch.cat(q_subs))
         del q_subs
         piece_pts = _commit_pts(ph, pieces, ph.d - 1)
         n_qb = ph.d - 2 if pk.srs.g1_extra is not None else 0
@@ -1145,6 +1179,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     SAN.check_phase(FR, "quotient", pieces=pieces)
 
     x = tr.squeeze_challenge()
+    phase("evals")
     xn = pow(x, n, FR.modulus)
     xn_pows = T(FR.encode([pow(xn, j, FR.modulus) for j in range(ph.d - 1)]))
     h_combined = ph.h_combine(pieces, xn_pows)
@@ -1193,6 +1228,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
         # W_i = [(F_i - F_i(z_i)) / (X - z_i)] per point, v-power order =
         # plan order at that point
         v = tr.squeeze_challenge()
+        phase("gwc_open")
         gn = pow(P.GEN, n, FR.modulus)    # X^n is constant on the base coset
         for rot, keys in by_rot.items():
             vp = np.zeros((len(keys), LIMBS), np.uint32)
@@ -1217,6 +1253,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     # ---- SHPLONK multiopen ----------------------------------------------------
     y2 = tr.squeeze_challenge()
     v = tr.squeeze_challenge()
+    phase("shplonk_h")
     sets_ = ph.shp_sets
     K = len(sets_)
     t_rots = []
@@ -1271,6 +1308,7 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     tr.write_point(commit_affine(pk.srs, h_shp, mesh=mesh))
 
     u = tr.squeeze_challenge()
+    phase("ipa_open" if multiopen == "ipa" else "shplonk_l")
     gn = pow(P.GEN, n, FR.modulus)
     zt_u = P.eval_host(P.vanishing_poly_coeffs(t_points), u)
     svals_np = np.zeros((K, LIMBS), np.uint32)

@@ -9,14 +9,16 @@ import torch
 
 from halo2_aes_tpu_torch.circuit.ir import CompiledCircuit
 from halo2_aes_tpu_torch.ops import aes
+from halo2_aes_tpu_torch.utils import timers
 
 
 def build_pool(key, plaintexts):
     """key uint8[16], plaintexts uint8[B,16] tensors -> int64 global
-    witness pool on their device."""
-    ks_pool, rks = aes.expand_key(key)
-    pools = aes.block_pool_batch(plaintexts, rks)
-    return torch.cat([ks_pool, pools.reshape(-1)])
+    witness pool on their device (a ``witness.build_pool`` span)."""
+    with timers.span("witness.build_pool", blocks=int(plaintexts.shape[0])):
+        ks_pool, rks = aes.expand_key(key)
+        pools = aes.block_pool_batch(plaintexts, rks)
+        return torch.cat([ks_pool, pools.reshape(-1)])
 
 
 def build_dec_pool(key, ciphertexts):
@@ -45,7 +47,10 @@ def _layout_tables(layout: CompiledCircuit, device):
 
 def assemble_values(layout: CompiledCircuit, pool):
     """-> int32 (num_columns, n) on the pool's device: advice values
-    from the pool merged with the fixed-column values."""
-    index, mapped, fixed = _layout_tables(layout, pool.device)
-    advice = torch.where(mapped, pool[index].reshape(mapped.shape), 0)
-    return (advice + fixed).to(torch.int32)
+    from the pool merged with the fixed-column values (a
+    ``witness.assemble_values`` span of the layout's blocks)."""
+    blocks = getattr(layout.meta.get("config"), "n_blocks", 0)
+    with timers.span("witness.assemble_values", blocks=blocks):
+        index, mapped, fixed = _layout_tables(layout, pool.device)
+        advice = torch.where(mapped, pool[index].reshape(mapped.shape), 0)
+        return (advice + fixed).to(torch.int32)

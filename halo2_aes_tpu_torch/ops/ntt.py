@@ -38,6 +38,7 @@ import torch
 
 from halo2_aes_tpu_torch.ops import cuda_ntt
 from halo2_aes_tpu_torch.ops import field as F
+from halo2_aes_tpu_torch.utils import timers
 
 LIMBS = F.LIMBS
 # the longest row a composed transform's pass takes is 2^ROW_CAP points
@@ -215,9 +216,13 @@ def ntt_flat(dom: Domain, flat, count: int, inverse: bool = False,
     (poly i at rows [i*n, (i+1)*n)), natural order in and out;
     ``shift_pows`` (n, 16) first multiplies every poly.  A CUDA tensor
     goes through K2 alone; a CPU tensor through the same composition of
-    the kernel's plain version."""
+    the kernel's plain version.  Every transform of the package comes
+    here once, in an ``ntt`` span (utils/timers.py) of its shape."""
     assert flat.shape == (count * dom.n, LIMBS), flat.shape
-    return _ntt_flat_composed(dom, flat.contiguous(), count, inverse, shift_pows)
+    with timers.span("ntt", count=count, log_n=dom.k,
+                     shifted=shift_pows is not None, inverse=inverse):
+        return _ntt_flat_composed(dom, flat.contiguous(), count, inverse,
+                                  shift_pows)
 
 
 def ntt_flat_plain(dom: Domain, flat, count: int, inverse: bool = False,

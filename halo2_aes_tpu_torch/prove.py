@@ -9,6 +9,8 @@ Usage:
   python -m halo2_aes_tpu_torch.prove ... --backend ipa
   python -m halo2_aes_tpu_torch.prove --k 20 --sets 4 --blocks 3082 \
       --tagged --verify --device cuda --checkpoint-dir ckpt
+  python -m halo2_aes_tpu_torch.prove --k 20 --sets 4 --blocks 3000 \
+      --device cuda --trace-dir trace
 
 ``--device`` defaults to the first CUDA card; without a card the command
 raises at once unless ``--device cpu`` is given.  Blinding always comes
@@ -17,7 +19,12 @@ plaintexts.  With ``--expose-ciphertext`` the verifier is
 given the public bytes (the ciphertext, or with ``--decrypt`` the
 recovered plaintext) from an oracle run apart from the witness.
 ``--checkpoint-dir`` saves each heavy prove phase there, so that a
-rerun of a crashed prove resumes at the first incomplete phase.  The
+rerun of a crashed prove resumes at the first incomplete phase.
+``--trace-dir DIR`` runs set-up and the prove under ``torch.profiler``
+(``utils/timers.device_trace``: ``DIR/trace.json``, a Chrome trace with
+the program's spans beside the kernels, and ``DIR/spans.json``) and
+prints one row per span path: its count, host seconds and device
+seconds.  The
 SRS, its MSM window tables (below 2^22 points; there are none from
 there on) and the keygen commitments are cached in ``ptau/`` (3.2 GB at
 k=20).  From k = 23 on (``backend/rest.py``) the command runs the CUDA
@@ -30,7 +37,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
 
 import numpy as np
 import torch
@@ -39,61 +45,59 @@ import torch
 def run(k: int, n_sets: int, blocks: int, tagged: bool, do_verify: bool,
         device: str | None = None, seed: int = 0, srs_cache: str | None = "ptau",
         expose_ciphertext: bool = False, decrypt: bool = False,
-        backend: str = "kzg-shplonk", checkpoint_dir: str | None = None) -> dict:
+        backend: str = "kzg-shplonk", checkpoint_dir: str | None = None,
+        trace_dir: str | None = None) -> dict:
     from halo2_aes_tpu_torch.backend import get_backend
     from halo2_aes_tpu_torch.backend import keygen as KG
     from halo2_aes_tpu_torch.circuit import witness
     from halo2_aes_tpu_torch.ops import aes
     from halo2_aes_tpu_torch.ops.timing import resolve_device
+    from halo2_aes_tpu_torch.utils import timers
 
     be = get_backend(backend)
     dev = resolve_device(device)
-    timings = {}
-
-    def timed(name, fn, *args, **kw):
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        timings[name] = round(time.perf_counter() - t0, 3)
-        print(f"[{name}] {timings[name]}s", flush=True)
-        return out
-
-    if decrypt:
-        from halo2_aes_tpu_torch.models.aes128_dec import (
-            AesDecConfig, compile_circuit as compile_dec)
-
-        layout = timed("compile_circuit", compile_dec,
-                       AesDecConfig(k=k, n_sets=n_sets, n_blocks=blocks,
-                                    expose_plaintext=expose_ciphertext))
-    else:
-        from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
-
-        layout = timed("compile_circuit", compile_circuit,
-                       AesConfig(k=k, n_sets=n_sets, n_blocks=blocks,
-                                 tagged_ops=tagged,
-                                 expose_ciphertext=expose_ciphertext))
-    srs = timed("srs_setup", be.setup_srs, k, dev, cache_dir=srs_cache)
-    if srs_cache is None:
-        pk = timed("keygen", KG.keygen, layout, srs)
-    else:
-        pk = timed("keygen", be.keygen, layout, srs, cache_dir=srs_cache)
+    pt = timers.PhaseTimers(device=dev)
     rng = np.random.default_rng(seed)
     key_np = rng.integers(0, 256, 16, dtype=np.uint8)
     pts_np = rng.integers(0, 256, (blocks, 16), dtype=np.uint8)
-    key = torch.as_tensor(key_np, device=dev)
-    pts = torch.as_tensor(pts_np, device=dev)
-
-    def build_values():
+    first = len(timers.spans())
+    with timers.device_trace(trace_dir):
         if decrypt:
-            # prove knowledge of the DECRYPTION of these ciphertexts
-            cts = aes.encrypt(pts, key)
-            return witness.assemble_values(layout, witness.build_dec_pool(key, cts))
-        return witness.assemble_values(layout, witness.build_pool(key, pts))
+            from halo2_aes_tpu_torch.models.aes128_dec import (
+                AesDecConfig, compile_circuit as compile_dec)
 
-    values = timed("witness", build_values)
-    proof = timed("prove", be.prove, pk, values, checkpoint_dir=checkpoint_dir)
-    result = {"proof_bytes": len(proof), "timings": timings, "blocks": blocks,
+            with pt.phase("compile_circuit"):
+                layout = compile_dec(AesDecConfig(
+                    k=k, n_sets=n_sets, n_blocks=blocks,
+                    expose_plaintext=expose_ciphertext))
+        else:
+            from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
+
+            with pt.phase("compile_circuit"):
+                layout = compile_circuit(AesConfig(
+                    k=k, n_sets=n_sets, n_blocks=blocks, tagged_ops=tagged,
+                    expose_ciphertext=expose_ciphertext))
+        with pt.phase("srs_setup"):
+            srs = be.setup_srs(k, dev, cache_dir=srs_cache)
+        with pt.phase("keygen"):
+            pk = (KG.keygen(layout, srs) if srs_cache is None
+                  else be.keygen(layout, srs, cache_dir=srs_cache))
+        key = torch.as_tensor(key_np, device=dev)
+        pts = torch.as_tensor(pts_np, device=dev)
+        with pt.phase("witness"):
+            if decrypt:
+                # prove knowledge of the DECRYPTION of these ciphertexts
+                pool = witness.build_dec_pool(key, aes.encrypt(pts, key))
+            else:
+                pool = witness.build_pool(key, pts)
+            values = witness.assemble_values(layout, pool)
+        with pt.phase("prove"):
+            proof = be.prove(pk, values, checkpoint_dir=checkpoint_dir)
+    if trace_dir is not None:
+        print(f"{'span':<64} {'count':>6} {'host_s':>10} {'device_s':>10}")
+        for path, count, host_s, dev_s in timers.span_table(timers.spans()[first:]):
+            print(f"{path:<64} {count:>6} {host_s:>10.4f} {dev_s:>10.4f}")
+    result = {"proof_bytes": len(proof), "blocks": blocks,
               "k": k, "n_sets": n_sets, "tagged_ops": tagged or decrypt,
               "mode": "decrypt" if decrypt else "encrypt",
               "backend": backend, "device": str(dev)}
@@ -107,8 +111,10 @@ def run(k: int, n_sets: int, blocks: int, tagged: bool, do_verify: bool,
             instances = [[int(v) for v in pub.reshape(-1)]]
         # the IPA verifier recomputes the folded basis point: it needs the basis
         extra = {"srs": srs} if backend == "ipa" else {}
-        timed("verify", be.verify, pk.vk, proof, instances=instances, **extra)
+        with pt.phase("verify"):
+            be.verify(pk.vk, proof, instances=instances, **extra)
         result["verified"] = True
+    result["timings"] = pt.report()
     return result
 
 
@@ -139,6 +145,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpoint-dir", default=None,
                     help="save per-phase prove checkpoints here and resume "
                          "a crashed prove (backend/resume.py)")
+    ap.add_argument("--trace-dir", default=None,
+                    help="profile set-up and the prove: write trace.json and "
+                         "spans.json here and print a row per span "
+                         "(utils/timers.py)")
     return ap
 
 
@@ -154,7 +164,8 @@ def main():
                          args.verify, args.device, args.seed,
                          expose_ciphertext=args.expose_ciphertext,
                          decrypt=args.decrypt, backend=args.backend,
-                         checkpoint_dir=args.checkpoint_dir)))
+                         checkpoint_dir=args.checkpoint_dir,
+                         trace_dir=args.trace_dir)))
 
 
 if __name__ == "__main__":

@@ -14,10 +14,10 @@ basis; ``mesh``: the default prove on a world-size-1 NCCL mesh of this
 process, ``parallel/``'s sharded transforms and commitments, with its
 collective calls and payload bytes), each reported with its kernel
 launch counts.  ``--phases`` times
-one more prove of the first variant named, round by round:
-the device is synchronised at every Fiat-Shamir challenge, and each
-interval is named after the prover phase that ends there, with its
-peak device memory.
+one more prove of the first variant named, phase by phase: the device
+seconds of the prover's phase spans (``utils/timers.py``, each closed at
+a Fiat-Shamir challenge; no synchronise in the prove), with each
+phase's peak device memory.
 ``--profile`` runs one more such prove under ``torch.profiler`` and reports
 device time and launches by kernel name, and device time over the
 profiled wall.  ``--tree`` imports ``halo2_aes_tpu_torch`` from another

@@ -3,9 +3,10 @@ PyTorch port.
 
 Imported by ``profile_torch_flagship.py`` and ``torch_prove_steady.py``
 (``--phases``, ``--profile``); not a script of its own.  ``phase_prove``
-synchronises the device at every Fiat-Shamir challenge, so each interval
-between two challenges is the device time and host time of the prover
-phase that ends there; ``profiled_prove`` runs one prove under
+runs a prove under ``timers.recording()`` and reads the prover's phase
+spans (``prover.PHASE_SPANS``, each closed at a Fiat-Shamir challenge):
+each phase's device seconds, between its span's two CUDA events, with
+no synchronise in the prove; ``profiled_prove`` runs one prove under
 ``torch.profiler``; ``memory_map`` names, from the allocator's recorded
 history, the code that allocated what each phase held when it began and
 at its peak.  Imports no JAX.
@@ -15,64 +16,41 @@ from __future__ import annotations
 
 import time
 
-# Fiat-Shamir challenges of a SHPLONK prove, in order -> the prover phase
-# each one closes; a challenge squeezed right after another closes nothing
-PHASE_AT = {"theta": "advice", "beta": "lookup_permuted", "gamma": None,
-            "y": "grand_products", "x": "quotient", "y2": "evals", "v": None,
-            "u": "shplonk_h", "finalize": "shplonk_l",
-            # an IPA prove squeezes k more challenges, one a halving round
-            "round": "ipa_rounds"}
-CHALLENGES = ["theta", "beta", "gamma", "y", "x", "y2", "v", "u"]
-
 
 def phase_prove(prove, device, log=None) -> tuple[dict, dict, dict]:
-    """Run ``prove()`` (a SHPLONK or IPA prove) with the device synchronised at
-    every transcript challenge.  Returns ({phase: seconds}, {phase: peak
+    """Run ``prove()`` (a SHPLONK, GWC or IPA prove) with the program's
+    spans recording.  Returns ({phase: device seconds}, {phase: peak
     device bytes allocated within it}, {phase: device bytes allocated
-    when it began}); each interval is named after the prover phase that
-    ends there.  ``log(label, seconds, peak, allocated)``, if given, is
-    called at every challenge as it comes (a run that dies of
-    out-of-memory still shows how far it got)."""
+    when it began}), the phases of ``prover.PHASE_SPANS`` in the order
+    they ran.  ``log(phase, host seconds, peak, allocated)``, if given,
+    is called as each phase ends (a run that dies of out-of-memory still
+    shows how far it got)."""
     import torch
 
-    from halo2_aes_tpu_torch.backend.transcript import TranscriptWriter
+    from halo2_aes_tpu_torch.backend.prover import PHASE_SPANS
+    from halo2_aes_tpu_torch.utils import timers
 
-    marks = []
-    squeeze, finalize = TranscriptWriter.squeeze_challenge, TranscriptWriter.finalize
+    peaks, held = {}, {}
+    began = [torch.cuda.memory_allocated(device)]
+    torch.cuda.reset_peak_memory_stats(device)
 
-    def mark(label):
-        torch.cuda.synchronize(device)
-        marks.append((label, time.perf_counter(),
-                      torch.cuda.max_memory_allocated(device),
-                      torch.cuda.memory_allocated(device)))
+    def on_exit(rec):
+        if rec.name not in PHASE_SPANS:
+            return
+        peak = torch.cuda.max_memory_allocated(device)
+        allocated = torch.cuda.memory_allocated(device)
+        peaks[rec.name] = max(peaks.get(rec.name, 0), peak)
+        held.setdefault(rec.name, began[0])
+        began[0] = allocated
         torch.cuda.reset_peak_memory_stats(device)
-        if log is not None and len(marks) > 1:
-            log(label, marks[-1][1] - marks[-2][1], marks[-1][2], marks[-1][3])
+        if log is not None:
+            log(rec.name, rec.seconds, peak, allocated)
 
-    def hooked_squeeze(self):
-        i = len(marks) - 1
-        mark(CHALLENGES[i] if i < len(CHALLENGES) else "round")
-        return squeeze(self)
-
-    def hooked_finalize(self):
-        mark("finalize")
-        return finalize(self)
-
-    TranscriptWriter.squeeze_challenge = hooked_squeeze
-    TranscriptWriter.finalize = hooked_finalize
-    try:
-        mark("start")
+    with timers.recording(on_exit=on_exit):
         prove()
-    finally:
-        TranscriptWriter.squeeze_challenge = squeeze
-        TranscriptWriter.finalize = finalize
-    seconds, peaks, held, current = {}, {}, {}, None
-    for (_, t_prev, _, at_start), (label, t, peak, _) in zip(marks, marks[1:]):
-        if not (label == "finalize" and current == "ipa_rounds"):
-            current = PHASE_AT[label] or current
-        seconds[current] = seconds.get(current, 0.0) + t - t_prev
-        peaks[current] = max(peaks.get(current, 0), peak)
-        held.setdefault(current, at_start)
+    tree = timers.last_tree("prove")
+    seconds = {r.name: r.device_seconds for r in tree.spans
+               if r.parent == tree.root.id and r.name in PHASE_SPANS}
     return seconds, peaks, held
 
 
@@ -128,8 +106,8 @@ def _mark_phase():
 
 
 def memory_map(prove, device, top: int = 12) -> dict:
-    """Run ``prove()`` with a marker allocated at every Fiat-Shamir
-    challenge, then replay the allocator's history: for each phase, the
+    """Run ``prove()`` with a marker allocated as it starts and as each
+    phase span ends, then replay the allocator's history: for each phase, the
     bytes live when it began and at its peak, each split by the code
     that allocated them (the ``top`` largest sites).  The history must
     have been recording since before the first allocation on the device
@@ -138,7 +116,7 @@ def memory_map(prove, device, top: int = 12) -> dict:
     event since."""
     import torch
 
-    labels = ["start"]
+    labels = []             # the phase that ended at each marker after the first
     _mark_phase()
 
     def log(label, *_):
@@ -152,9 +130,8 @@ def memory_map(prove, device, top: int = 12) -> dict:
         oom = str(e).splitlines()[0]
     trace = torch.cuda.memory._snapshot()["device_traces"][
         torch.device(device).index or 0]
-    # the phase that begins at each marker: the next one a later challenge ends
-    ends = [PHASE_AT.get(lb) for lb in labels]
-    begins = [next((e for e in ends[i + 1:] if e), None) for i in range(len(ends))]
+    # phases are consecutive: marker i begins the phase that ends at marker i + 1
+    begins = labels + [None]
     live, by_site, current = {}, {}, 0
     order, phases, cur, marks = [], {}, None, 0
     for ev in trace:

@@ -24,9 +24,10 @@ blocks at 4 sets) run as they are:
 
 ``--tables`` first times the tables of the large path at this k, one
 by one (each is cached per process, so the cold prove then runs
-without them).  ``--phases`` times one more prove phase by phase, synchronised
-at every Fiat-Shamir challenge, with each phase's peak device memory and
-the memory held when it began (printed as each phase ends).
+without them).  ``--phases`` times one more prove phase by phase, the device
+seconds of the prover's phase spans (``utils/timers.py``), with each
+phase's peak device memory and the memory held when it began (printed
+as each phase ends).
 ``--static-compare N`` then proves 2N more times in turns, with the
 static sub-coset evaluations cached (by this script, for all R
 sub-cosets) and recomputed (what the large path does).

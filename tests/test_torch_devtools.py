@@ -105,7 +105,10 @@ def test_device_trace_writes_chrome_trace(tmp_path):
         pass
     out = tmp_path / "trace"
     with timers.device_trace(str(out)):
-        torch.arange(8).sum()
+        with timers.span("sum", n=8):
+            torch.arange(8).sum()
     with open(out / "trace.json") as f:
         assert "traceEvents" in json.load(f)
     assert os.path.getsize(out / "trace.json") > 0
+    with open(out / "spans.json") as f:
+        assert [(r["name"], r["attrs"]) for r in json.load(f)] == [("sum", {"n": 8})]

@@ -1,0 +1,161 @@
+"""The port's program spans (utils/timers.py) on the K=6 toy, on the CPU:
+off they record and construct nothing; recording leaves the proof bytes
+as they are; on, a prove is one ``prove`` tree whose phases tile it in
+order, whose ``ntt`` and ``commit`` spans carry the shapes of their
+calls, and whose host times are the profiler's; the benchmark's span
+readers read it."""
+
+import math
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from benchmark import harness
+from halo2_aes_tpu_torch.backend import keygen, prover, srs
+from halo2_aes_tpu_torch.backend.transcript import TranscriptWriter
+from halo2_aes_tpu_torch.circuit import witness
+from halo2_aes_tpu_torch.circuit.toys import K, toy_circuit
+from halo2_aes_tpu_torch.ops import ntt as NTT
+from halo2_aes_tpu_torch.utils import timers
+
+torch.set_num_threads(1)
+REPO = pathlib.Path(__file__).resolve().parent.parent
+SEED = 5
+PHASES = {"shplonk": ["advice", "lookup_permuted", "grand_products", "quotient",
+                      "evals", "shplonk_h", "shplonk_l"],
+          "gwc": ["advice", "lookup_permuted", "grand_products", "quotient",
+                  "evals", "gwc_open"]}
+READERS = ["span_s.quotient", "span_s.grand_products", "span_s.quotient_terms",
+           "span_s.commit", "span_s.witness", "ntt_many_roofline.in_proof"]
+
+
+@pytest.fixture(scope="module")
+def toy():
+    layout, values = toy_circuit()
+    return keygen.keygen(layout, srs.setup(K, "cpu", cache_dir=None)), values
+
+
+def _recorded(pk, values, multiopen="shplonk"):
+    timers.clear()
+    with timers.recording():
+        proof = prover.prove(pk, values, seed=SEED, multiopen=multiopen)
+    return proof, timers.last_tree("prove")
+
+
+def test_off_records_and_constructs_nothing(toy, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("tracing is off")
+
+    for name in ("Event", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    timers.clear()
+    prover.prove(*toy, seed=SEED)
+    assert timers.spans() == [] and timers.last_tree() is None
+
+
+@pytest.mark.parametrize("multiopen", ["shplonk", "gwc"])
+def test_recording_leaves_proof_bytes(toy, multiopen):
+    off = prover.prove(*toy, seed=SEED, multiopen=multiopen)
+    on, tree = _recorded(*toy, multiopen)
+    assert on == off and tree is not None
+
+
+@pytest.mark.parametrize("multiopen", ["shplonk", "gwc"])
+def test_phases_tile_the_prove_root(toy, multiopen):
+    tree = _recorded(*toy, multiopen)[1]
+    roots = [r for r in timers.spans() if r.parent is None]
+    assert [r.name for r in roots] == ["prove"]
+    assert tree.root.attrs == {"k": K, "multiopen": multiopen}
+    phases = [r for r in tree.spans if r.parent == tree.root.id]
+    assert [r.name for r in phases] == PHASES[multiopen]
+    for a, b in zip(phases, phases[1:]):
+        assert a.end_ns <= b.start_ns
+    assert tree.root.start_ns <= phases[0].start_ns
+    assert phases[-1].end_ns <= tree.root.end_ns
+    covered = sum(r.end_ns - r.start_ns for r in phases)
+    assert covered >= 0.99 * (tree.root.end_ns - tree.root.start_ns)
+    for r in tree.spans:         # on the CPU the device times are the host times
+        assert (r.device_start_ns, r.device_end_ns) == (r.start_ns, r.end_ns)
+
+
+def test_ntt_and_commit_spans_carry_their_shapes(toy, monkeypatch):
+    calls, points = [], []
+    composed = NTT._ntt_flat_composed
+
+    def spy(dom, flat, count, inverse, shift_pows, **kw):
+        calls.append({"count": count, "log_n": dom.k,
+                      "shifted": shift_pows is not None, "inverse": inverse})
+        assert flat.shape == (count << dom.k, 16)
+        return composed(dom, flat, count, inverse, shift_pows, **kw)
+
+    write_point = TranscriptWriter.write_point
+
+    def count_point(self, pt):
+        points.append(pt)
+        return write_point(self, pt)
+
+    monkeypatch.setattr(NTT, "_ntt_flat_composed", spy)
+    monkeypatch.setattr(TranscriptWriter, "write_point", count_point)
+    _, tree = _recorded(*toy)
+    assert [r.attrs for r in tree.spans if r.name == "ntt"] == calls and calls
+    commits = [r for r in tree.spans if r.name == "commit"]
+    assert sum(r.attrs["polys"] for r in commits) == len(points)
+    assert all(r.attrs["points"] == 1 << K for r in commits)
+    terms = [r for r in tree.spans if r.name == "quotient.terms"]
+    assert terms and all(r.attrs["terms"] > 0 for r in terms)
+
+
+def test_spans_share_the_profilers_clock(toy):
+    timers.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        prover.prove(*toy, seed=SEED)
+    recs = timers.spans()
+    names = {r.name for r in recs}
+    events = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name() in names:
+            events.setdefault(e.name(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    assert {"prove", "quotient", "ntt", "commit"} <= names
+    for name in names:
+        ours = sorted((r.start_ns, r.end_ns) for r in recs if r.name == name)
+        theirs = sorted(events[name])
+        assert len(ours) == len(theirs)
+        for (s0, e0), (s1, e1) in zip(ours, theirs):
+            assert abs(s0 - s1) <= 500_000 and abs(e0 - e1) <= 500_000
+
+
+def test_benchmark_readers_read_the_toy(toy):
+    pk, values = toy
+    timers.clear()
+    rng = np.random.default_rng(SEED)
+    with timers.recording():
+        witness.build_pool(torch.as_tensor(rng.integers(0, 256, 16, dtype=np.uint8)),
+                           torch.as_tensor(rng.integers(0, 256, (2, 16), dtype=np.uint8)))
+        prover.prove(pk, values, seed=SEED)
+    ctx = type("Ctx", (), {"log": staticmethod(lambda m: None)})()
+    got = {name: harness.load_reader(name, str(REPO / "benchmark")).read(ctx)
+           for name in READERS}
+    assert all(isinstance(v, float) and math.isfinite(v) and v > 0
+               for v in got.values()), got
+    assert got["span_s.quotient_terms"] <= got["span_s.quotient"]
+    assert got["ntt_many_roofline.in_proof"] <= 100
+
+
+def test_phase_timers_open_spans_and_table():
+    timers.clear()
+    t = timers.PhaseTimers(verbose=False)
+    with timers.recording():
+        with t.phase("outer"):
+            with timers.span("inner", n=1):
+                pass
+            with timers.span("inner", n=2):
+                pass
+    rows = timers.span_table(timers.spans())
+    assert [r[:2] for r in rows] == [["outer", 1], ["outer/inner", 2]]
+    assert rows[0][2] >= rows[1][2] >= 0
+    assert "outer" in t.report()
