@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one CUDA card.
 
-  python3 chip_smoke.py [golden,mock,ipa,mini,srs_format,mesh,mxu,large_forced,large_k23]
+  python3 chip_smoke.py [golden,mock,ipa,mini,srs_format,mesh,mxu,large_forced,large_k23,quotient_terms]
 
 With no argument every phase runs; with a comma-separated list only the
 device and build phases and the named ones do, and no ok line is printed.
@@ -48,7 +48,10 @@ Phases, each printing one JSON line as it ends:
                 torch.profiler with carry_norm_ks made to raise; then
                 the nibble-product probe's path (scripts/torch_mxu_probe.py)
   6 gwc_packed  on the flagship pk: one GWC prove and one packed-lookup
-                prove, each verified and a flipped byte rejected
+                prove, each verified and a flipped byte rejected; then
+                (printed with quotient_terms, below) SHPLONK, GWC and IPA
+                proofs of the flagship with K4 equal those with the eager
+                term fold, K4 launched once a sub-coset
     mesh        the multi-device prover (halo2_aes_tpu_torch/parallel/):
                 (a) a mesh of world size 1 over NCCL in this process
                 (file store under build/; no NCCL fails the phase): the
@@ -91,6 +94,12 @@ Phases, each printing one JSON line as it ends:
                 prove, verify, a flipped byte rejected, peak memory; and
                 a K=6 toy prove crashed after its products phase resumes
                 from its checkpoints to the golden bytes
+    quotient_terms  K4 (the quotient's constraint terms in one launch a
+                sub-coset) against the eager fold on the benchmark cell's
+                circuit (AES-128, 4 sets, upstream's layout) over random
+                stacks: a whole k=20 sub-coset and one row chunk of a k=23
+                sub-coset (the host-rest form), bit-exact, with CUDA-event
+                times and the bound; with the flagship proofs above
     large_k23   the same circuit at k=23, 24,671 blocks (full
                 capacity), nothing cached on disk: setup, keygen,
                 witness, prove, verify, a flipped byte rejected; each
@@ -813,7 +822,7 @@ def phase_golden(dev):
 
 K3_ENTRIES = {"K3_add": "add", "K3_fold": "fold", "K3_masked": "masked_add",
               "K3_double": "double_n"}
-PATH_KERNELS = ("K1", "K2", "K3", *K3_ENTRIES)
+PATH_KERNELS = ("K1", "K2", "K3", "K4", *K3_ENTRIES)
 PROBE_KERNELS = {"P1": "mul_probe", "P2a": "mont_mul_planes16",
                  "P2b": "mont_mul_planes13"}
 K5_ENTRIES = {"K5_product": "product", "K5_normalize": "normalize"}
@@ -821,9 +830,9 @@ K5_ENTRIES = {"K5_product": "product", "K5_normalize": "normalize"}
 
 def reset_counts():
     from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_nibble, cuda_ntt,
-                                         cuda_probe)
+                                         cuda_probe, cuda_quotient)
 
-    for mod in (cuda_field, cuda_ntt, cuda_curve, cuda_nibble):
+    for mod in (cuda_field, cuda_ntt, cuda_curve, cuda_quotient, cuda_nibble):
         mod.LAUNCHES = 0
     for entry in cuda_curve.ENTRY_LAUNCHES:
         cuda_curve.ENTRY_LAUNCHES[entry] = 0
@@ -834,10 +843,11 @@ def reset_counts():
 
 def read_counts() -> dict:
     from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_nibble, cuda_ntt,
-                                         cuda_probe)
+                                         cuda_probe, cuda_quotient)
 
     out = {"K1": cuda_field.LAUNCHES, "K2": cuda_ntt.LAUNCHES,
-           "K3": cuda_curve.LAUNCHES, "K5": cuda_nibble.LAUNCHES}
+           "K3": cuda_curve.LAUNCHES, "K4": cuda_quotient.LAUNCHES,
+           "K5": cuda_nibble.LAUNCHES}
     out.update({key: cuda_curve.ENTRY_LAUNCHES[name]
                 for key, name in K3_ENTRIES.items()})
     out.update({key: cuda_probe.LAUNCHES[name]
@@ -925,6 +935,60 @@ def phase_flagship(dev) -> dict:
           "flipped_byte_rejected": rejected, "peak_mem_bytes": peak,
           "launches": counts})
     return counts, pk, values, proof
+
+
+def eager_terms_proof(pk, values, **opts) -> bytes:
+    """A proof whose quotient terms take the eager fold (the sliced form,
+    equal to the whole one) in place of K4."""
+    from halo2_aes_tpu_torch.backend import prover as PV
+
+    fused = PV._Phases.quotient_subcoset_fused
+    PV._Phases.quotient_subcoset_fused = PV._Phases.quotient_subcoset_sliced
+    try:
+        return PV.prove(pk, values, **opts)
+    finally:
+        PV._Phases.quotient_subcoset_fused = fused
+
+
+def quotient_terms_proofs(pk, values, dev) -> dict:
+    """On the flagship's pk (and an IPA pk of the same circuit): SHPLONK,
+    GWC and IPA proofs with K4 equal those with the eager fold, byte for
+    byte, and K4 launched once a sub-coset."""
+    from halo2_aes_tpu_torch.backend import ipa as IPA
+    from halo2_aes_tpu_torch.backend import keygen as KG
+    from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
+
+    out = {}
+    ipa_pk = KG.keygen_cached(compile_circuit(AesConfig(**FLAGSHIP)),
+                              IPA.setup(FLAGSHIP["k"], dev,
+                                        cache_dir=os.path.join(REPO, "ptau")),
+                              cache_dir=os.path.join(REPO, "ptau"))
+    for multiopen, key in (("shplonk", pk), ("gwc", pk), ("ipa", ipa_pk)):
+        reset_counts()
+        proof = PV.prove(key, values, seed=5, multiopen=multiopen)
+        launches = read_counts()["K4"]
+        if launches != PV._get_phases(key).ratio:
+            raise AssertionError(f"quotient_terms: {launches} K4 launches in a "
+                                 f"{multiopen} prove")
+        if proof != eager_terms_proof(key, values, seed=5, multiopen=multiopen):
+            raise AssertionError(f"quotient_terms: the flagship {multiopen} proof "
+                                 "with K4 differs from the eager fold's")
+        out[multiopen] = {"proof_bytes": len(proof), "k4_launches": launches,
+                          "equals_eager": True}
+    return out
+
+
+def quotient_terms_kernels(dev) -> dict:
+    """K4 against the eager fold on the benchmark cell's circuit: one k=20
+    sub-coset, and one row chunk of a k=23 sub-coset (the host-rest form),
+    bit-exact, with CUDA-event times and the bound."""
+    kt = _script("torch_kernel_times")
+    rec = {"k20": kt.quotient_terms_times(dev, 20)}
+    free()
+    rec["k23_row_chunk"] = kt.quotient_terms_times(dev, 23)
+    free()
+    return rec
 
 
 def phase_probes(dev) -> dict:
@@ -1996,7 +2060,7 @@ def kernels_record(rec: dict, counts: dict, ipa_counts: dict,
     fold; null for K5's normalize entry (no PyTorch call carries limbs),
     whose row sums the ``mxu`` phase's four carry sites."""
     from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_nibble, cuda_ntt,
-                                         cuda_probe)
+                                         cuda_probe, cuda_quotient)
 
     k3 = (cuda_curve.SOURCE, cuda_curve.REPLACES)
     rows = [("K1", "K1", "mont_mul", cuda_field.SOURCE, cuda_field.REPLACES),
@@ -2010,6 +2074,8 @@ def kernels_record(rec: dict, counts: dict, ipa_counts: dict,
              for key, name in PROBE_KERNELS.items()]
     rows.append(("P1_full", "P1", "mul_probe_full", cuda_probe.SOURCE["mul_probe"],
                  cuda_probe.REPLACES["mul_probe"]))
+    rows.append(("K4", "K4", "quotient_terms", cuda_quotient.SOURCE,
+                 cuda_quotient.REPLACES))
     rows.append(("K5", "K5_product", "nibble_product", cuda_nibble.SOURCE,
                  cuda_nibble.REPLACES))
     rows.append(("K5_normalize", "K5_normalize", "nibble_normalize",
@@ -2054,10 +2120,17 @@ def main(only: str = "") -> int:
     if only:
         # development aid: some of the later phases alone (no ok line)
         for name in only.split(","):
-            if name in ("mesh", "large_forced"):
+            if name in ("mesh", "large_forced", "quotient_terms"):
                 _, pk, values, _ = phase_flagship(dev)
                 if name == "mesh":
                     phase_mesh(pk, values, dev)
+                elif name == "quotient_terms":
+                    proofs = quotient_terms_proofs(pk, values, dev)
+                    del pk, values
+                    free()
+                    emit({"phase": "quotient_terms", "flagship_proofs": proofs,
+                          "kernels": quotient_terms_kernels(dev)})
+                    continue
                 else:
                     emit({"phase": "large_forced",
                           "forced_sliced_k17": large_forced(pk, values)})
@@ -2081,6 +2154,8 @@ def main(only: str = "") -> int:
     counts.update({key: mxu_counts[key] for key in ("K5", *K5_ENTRIES)})
     free()
     phase_gwc_packed(pk, values)
+    q_proofs = quotient_terms_proofs(pk, values, dev)
+    free()
     mesh_counts = phase_mesh(pk, values, dev)
     srs = pk.srs
     phase_ctr(srs, dev)
@@ -2094,6 +2169,13 @@ def main(only: str = "") -> int:
     free()
     emit({"phase": "large_k23", "k23": large_k23(dev)})
     free()
+    q_kernels = quotient_terms_kernels(dev)
+    emit({"phase": "quotient_terms", "flagship_proofs": q_proofs,
+          "kernels": q_kernels})
+    k20 = q_kernels["k20"]
+    rec["K4"] = {"errors": {"k20": 0, "k23_row_chunk": 0}, "ms": k20["k4_ms"],
+                 "plain_ms": k20["eager_ms"], "bound_ms": k20["bound_ms"],
+                 "bound_by": k20["bound_by"]}
     phase_mock(dev)
     free()
     ipa_counts = phase_ipa(dev)

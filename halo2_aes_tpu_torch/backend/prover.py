@@ -20,7 +20,10 @@ order (``seed=None`` means ``os.urandom``).
 
 The quotient is evaluated per SUB-COSET: the extended coset of ratio R
 splits into R interleaved size-n cosets {g w_ext^s w^j}; rotations stay
-intra-coset rolls.
+intra-coset rolls.  On a card the constraint terms of a sub-coset are
+one K4 launch (``quotient_subcoset_fused``: the terms lowered once per
+pk by backend/term_program.py); on the CPU they are folded eagerly, one
+field op at a time, with the same bits.
 
 From k = ``_LARGE_MIN_K`` (19) on, the reference's large path runs: the
 quotient's coset NTTs go B polys at a time into one output
@@ -68,8 +71,10 @@ from halo2_aes_tpu_torch.backend import poly as P
 from halo2_aes_tpu_torch.backend import protocol as PROTO
 from halo2_aes_tpu_torch.backend import rest
 from halo2_aes_tpu_torch.backend import resume as RES
+from halo2_aes_tpu_torch.backend import term_program as TP
 from halo2_aes_tpu_torch.backend.keygen import ProvingKey, commit_affine, commit_many
 from halo2_aes_tpu_torch.backend.transcript import TranscriptWriter
+from halo2_aes_tpu_torch.ops import cuda_quotient as CQ
 from halo2_aes_tpu_torch.ops import curve as CV
 from halo2_aes_tpu_torch.ops import field as F
 from halo2_aes_tpu_torch.ops.ntt import domain, ntt_many
@@ -307,6 +312,11 @@ class _Phases:
             dkeys += [("lookup_z", i), ("lookup_a", i), ("lookup_s", i)]
         self.q_static_keys = skeys
         self.q_dyn_keys = dkeys
+        # the constraint terms as one program over a row of the sub-coset's
+        # stacks (static, then dynamic), for K4 (quotient_subcoset_fused)
+        self.terms = TP.lower(cs, skeys + dkeys, self.usable, self.n)
+        self._terms_code = torch.as_tensor(self.terms.code, device=self.dev)
+        self._terms_consts = self.encode(list(self.terms.consts)).reshape(-1, LIMBS)
         self._static_evals = {}          # sub-coset s -> (S*n, 16)
         self._packed_tables = {}         # lookup -> packed table sort
         self._delta_pows = F.limbs(
@@ -620,6 +630,25 @@ class _Phases:
                 out = torch.empty((n, LIMBS), dtype=acc.dtype, device=acc.device)
             out[rows[0]:rows[1]] = acc
             del terms, acc, part
+        return out
+
+    def quotient_subcoset_fused(self, static_evals, dyn_evals, theta_m, beta_m,
+                                gamma_m, y_m, shift_pows, zh_inv):
+        """The term program (``self.terms``) in one K4 launch per row chunk
+        of the ``_QUOTIENT_ROW_CHUNKS`` form: the term fold and the Z_H
+        division with no temporaries.  Equal to ``quotient_subcoset``
+        (on CPU tensors through K4's plain version)."""
+        n = self.n
+        dshift = F.mont_mul(FR, self._delta_pows, shift_pows[1])
+        table = CQ.constant_table(self._terms_consts, y_m, zh_inv, theta_m,
+                                  beta_m, gamma_m, dshift)
+        omega = self.dom.omega_powers(self.dev)
+        out = torch.empty((n, LIMBS), dtype=torch.int32, device=self.dev)
+        chunks = _QUOTIENT_ROW_CHUNKS[self.host_rest()]
+        for c in range(chunks):
+            lo, hi = c * n // chunks, (c + 1) * n // chunks
+            CQ.quotient_terms(self._terms_code, self.terms.slots, table,
+                              static_evals, dyn_evals, omega, lo, out[lo:hi])
         return out
 
     def _subcoset_ctx(self, static_evals, dyn_evals, theta_m, beta_m, gamma_m,
@@ -1131,6 +1160,10 @@ def _prove(phase, pk, values, instances, seed, mesh, mesh_axis, multiopen,
                 (n_static + len(ph.q_dyn_keys) * n, LIMBS), dtype=torch.int32,
                 device=dev)
         n_polys = len(ph.q_dyn_keys) + len(ph.q_static_keys)
+        # CUDA stacks take K4; the CPU keeps the eager fold
+        fused = dev.type == "cuda"
+        qsub = (ph.quotient_subcoset_fused if fused else
+                ph.quotient_subcoset_sliced if large else ph.quotient_subcoset)
         for s in range(ph.ratio):
             shift_pows, zh_inv = _subcoset_tables(ph.k, ph.ext_k, s, dev)
             with timers.span("quotient.subcoset_evals", polys=n_polys):
@@ -1140,16 +1173,17 @@ def _prove(phase, pk, values, instances, seed, mesh, mesh_axis, multiopen,
                                                 out=subcoset_evals[n_static:])
                     static_evals = ph.static_subcoset_evals(
                         s, out=subcoset_evals[:n_static])
-                    qsub = ph.quotient_subcoset_sliced
                 else:
                     dyn_stack = ph.stack([coeffs_for(key) for key in ph.q_dyn_keys])
                     dyn_evals = ph._ntt_many(dyn_stack, len(ph.q_dyn_keys),
                                              inverse=False, shift_pows=shift_pows)
                     del dyn_stack
                     static_evals = ph.static_subcoset_evals(s)
-                    qsub = ph.quotient_subcoset
-            # the Horner fold of the constraint terms and the Z_H division
-            with timers.span("quotient.terms", terms=ph.n_constraint_terms()):
+            # the Horner fold of the constraint terms and the Z_H division;
+            # muls, polys and rows give the work the constraint system asks
+            with timers.span("quotient.terms", terms=ph.n_constraint_terms(),
+                             fused=int(fused), muls=ph.terms.muls,
+                             polys=ph.terms.polys, rows=n):
                 q_subs.append(qsub(static_evals, dyn_evals, theta_m,
                                    beta_m, gamma_m, y_m, shift_pows, zh_inv))
             del dyn_evals, static_evals

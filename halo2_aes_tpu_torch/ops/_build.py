@@ -65,6 +65,11 @@ SIGNATURES = {
     # ksteps, tiles, tile limbs, limbs a column block, limbs, width (0: fold
     # only), addend limbs, stream
     "nibble_mma_launch": [_P] * 6 + [_I, _I] + [ctypes.c_int] * 8 + [_P],
+    # out, static stack, dynamic stack, omega powers, code, instructions,
+    # table, table rows, static polys, n, first row, rows, slots, threads,
+    # p[8] (host), n0inv, stream
+    "quotient_terms_launch": [_P] * 5 + [ctypes.c_int, _P, ctypes.c_int]
+                             + [_I] * 4 + [ctypes.c_int] * 2 + [_P, _U, _P],
 }
 
 

@@ -3,7 +3,8 @@
 shapes of a k=20 prove, on one CUDA card.
 
   python3 scripts/torch_kernel_times.py [--tree DIR] [--lg 20] [--count 45]
-      [--polys 8] [--split-lg 23] [--only-splits] [--out FILE]
+      [--polys 8] [--quotient-k 20,23] [--split-lg 23] [--only-splits]
+      [--out FILE]
 
 ``--tree`` imports ``halo2_aes_tpu_torch`` from another checkout (default:
 this one), so two trees can be timed in turns on one card in one run;
@@ -20,6 +21,14 @@ else through ``cuda_ntt.ntt_fused``).  CUDA-event medians
             launch a level
   msm_many  ``polys`` commitments over 2^lg points (SRS and window tables
             cached in ``ptau/``), K3 launches, peak device memory
+  K4        with ``--quotient-k K,..`` (where the tree has
+            ``ops/cuda_quotient.py``; default 20): the quotient's
+            constraint terms of the benchmark cell's circuit (AES-128, 4
+            sets, upstream's layout) over random stacks of one sub-coset
+            at 2^K, K4 (one launch) against the eager fold, bit-exact, with
+            the bound of the work the constraint system asks; from
+            ``rest.HOST_REST_MIN_K`` on one row chunk of the host-rest
+            form (the second of ``_QUOTIENT_ROW_CHUNKS``) of a sub-coset
   splits    with ``--split-lg L`` (where the tree has ``ops/ntt.ROW_CAP``):
             count transforms of 2^L with a coset shift, and inverse, at
             each row cap that gives another split of L (rows of at most
@@ -67,12 +76,118 @@ def fold_times(cuda_curve, p, time_ms) -> dict:
     return out
 
 
+def cell_phases(dev, k: int):
+    """The prover's ``_Phases`` of the benchmark cell's circuit (AES-128,
+    4 sets, upstream's layout) at 2^k rows, without keys (the quotient
+    reads only the constraint system and the domain)."""
+    import dataclasses
+    import types
+
+    from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
+
+    # the constraint system does not depend on k: lay out at 2^17, prove at 2^k
+    layout = dataclasses.replace(
+        compile_circuit(AesConfig(k=17, n_sets=4, n_blocks=384)), k=k)
+    cs = layout.cs
+    vk = types.SimpleNamespace(cs=cs, k=k, usable=layout.usable_rows,
+                               ext_k=k + max(1, (cs.degree() - 2).bit_length()))
+    return PV._Phases(types.SimpleNamespace(vk=vk, layout=layout, device=dev))
+
+
+def random_stack(F, polys: int, n: int, gen, dev):
+    """(polys * n, 16) random canonical limbs (the top limb below p's)."""
+    import torch
+
+    x = torch.empty((polys * n, F.LIMBS), dtype=torch.int32, device=dev)
+    for p in range(polys):
+        part = x[p * n:(p + 1) * n]
+        part.random_(0, 1 << 16, generator=gen)
+        part[:, -1] %= int(F.FR.p_limbs[-1])
+    return x
+
+
+def quotient_terms_times(dev, k: int) -> dict:
+    """K4 against the eager fold on the benchmark cell's circuit at 2^k
+    rows a sub-coset (random canonical stacks and challenges): a whole
+    sub-coset below ``rest.HOST_REST_MIN_K``, from it the second row
+    chunk of its host-rest form; bit-exact, CUDA-event times of both,
+    and the bound of the work the constraint system asks (each poly the
+    terms read and the result once; ``muls`` products a row)."""
+    import torch
+
+    from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.ops import cuda_quotient as CQ
+    from halo2_aes_tpu_torch.ops import field as F
+    from halo2_aes_tpu_torch.ops.timing import time_ms
+
+    ph = cell_phases(dev, k)
+    n = ph.n
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(k)
+    static = random_stack(F, len(ph.q_static_keys), n, gen, dev)
+    dyn = random_stack(F, len(ph.q_dyn_keys), n, gen, dev)
+    shift, zh_inv = PV._subcoset_tables(k, ph.ext_k, 1, dev)
+    scal = [F.encode(F.FR, v, dev) for v in (0x1234567, 0x89ABCDEF, 0xFEDCBA9, 0x7654321)]
+    args = (static, dyn, *scal, shift, zh_inv)
+    chunks = PV._QUOTIENT_ROW_CHUNKS[ph.host_rest()]
+    if chunks == 1:
+        lo, hi = 0, n
+
+        def fused():
+            return ph.quotient_subcoset_fused(*args)
+
+        def eager():
+            return ph.quotient_subcoset_sliced(*args)
+    else:
+        lo, hi = n // chunks, 2 * n // chunks
+        theta, beta, gamma, y = scal
+        table = CQ.constant_table(ph._terms_consts, y, zh_inv, theta, beta, gamma,
+                                  F.mont_mul(F.FR, ph._delta_pows, shift[1]))
+        omega = ph.dom.omega_powers(dev)
+        out = torch.empty((hi - lo, F.LIMBS), dtype=torch.int32, device=dev)
+
+        def fused():
+            return CQ.quotient_terms(ph._terms_code, ph.terms.slots, table,
+                                     static, dyn, omega, lo, out)
+
+        def eager():
+            terms = PV.PROTO.constraint_terms(ph.cs, ph._subcoset_ctx(
+                static, dyn, theta, beta, gamma, shift, (lo, hi)))
+            acc = ph._quotient_terms_slice(terms, ph.n_constraint_terms(), y)
+            return F.mont_mul(F.FR, acc, zh_inv)
+
+    before = CQ.LAUNCHES
+    got = fused()
+    launches = CQ.LAUNCHES - before
+    want = eager()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K4: rows [{lo}, {hi}) of a 2^{k} sub-coset "
+                             "differ from the eager fold")
+    del want
+    rows = hi - lo
+    t = ph.terms
+    by_bytes = (t.polys + 1) * rows * 64 / 3.35e12 * 1e3
+    by_ops = t.muls * rows * 136 / 16.75e12 * 1e3
+    rec = {"k": k, "rows": [lo, hi], "launches": launches, "bit_exact": True,
+           "instructions": int(t.code.shape[0]), "slots": t.slots,
+           "muls": t.muls, "polys": t.polys, "terms": t.terms,
+           "k4_ms": time_ms(fused, 3, 3), "eager_ms": time_ms(eager, 1, 3),
+           "bound_ms": max(by_bytes, by_ops),
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    rec["share_of_bound"] = rec["bound_ms"] / rec["k4_ms"]
+    del static, dyn, args
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=REPO)
     ap.add_argument("--lg", type=int, default=20)
     ap.add_argument("--count", type=int, default=45)
     ap.add_argument("--polys", type=int, default=8)
+    ap.add_argument("--quotient-k", default="20")
     ap.add_argument("--split-lg", type=int, default=0)
     ap.add_argument("--only-splits", action="store_true")
     ap.add_argument("--out", default=None)
@@ -103,6 +218,11 @@ def main() -> int:
 
     out = {"tree": os.path.relpath(os.path.abspath(args.tree), REPO),
            "card": card_line(), "lg": lg, "count": count}
+    if args.quotient_k and os.path.exists(os.path.join(
+            os.path.abspath(args.tree), "halo2_aes_tpu_torch", "ops",
+            "cuda_quotient.py")):
+        out["quotient_terms"] = [quotient_terms_times(dev, int(k))
+                                 for k in args.quotient_k.split(",")]
     if args.split_lg:
         out["splits"] = split_times(N, cuda_ntt, F, random_fr, args.split_lg,
                                     count, time_ms, dev)

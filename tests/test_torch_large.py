@@ -227,7 +227,8 @@ def test_grand_product():
         assert _same(one, ref, many[rows])
 
 
-@pytest.mark.parametrize("fn", ["quotient_subcoset", "quotient_subcoset_sliced"])
+@pytest.mark.parametrize("fn", ["quotient_subcoset", "quotient_subcoset_sliced",
+                                "quotient_subcoset_fused"])
 def test_subcoset_stacks_freed_on_return(phases, fn):
     """A sub-coset's evaluation stacks are freed as soon as the quotient
     call returns, with Python's cyclic collector off: the protocol

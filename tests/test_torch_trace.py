@@ -29,7 +29,8 @@ PHASES = {"shplonk": ["advice", "lookup_permuted", "grand_products", "quotient",
           "gwc": ["advice", "lookup_permuted", "grand_products", "quotient",
                   "evals", "gwc_open"]}
 READERS = ["span_s.quotient", "span_s.grand_products", "span_s.quotient_terms",
-           "span_s.commit", "span_s.witness", "ntt_many_roofline.in_proof"]
+           "span_s.commit", "span_s.witness", "ntt_many_roofline.in_proof",
+           "quotient_terms_roofline"]
 
 
 @pytest.fixture(scope="module")
@@ -144,6 +145,7 @@ def test_benchmark_readers_read_the_toy(toy):
                for v in got.values()), got
     assert got["span_s.quotient_terms"] <= got["span_s.quotient"]
     assert got["ntt_many_roofline.in_proof"] <= 100
+    assert got["quotient_terms_roofline"] <= 100
 
 
 def test_phase_timers_open_spans_and_table():
