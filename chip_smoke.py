@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one CUDA card.
 
-  python3 chip_smoke.py [golden,mock,ipa,mini,srs_format,mesh,mxu,large_forced,large_k23,quotient_terms]
+  python3 chip_smoke.py [golden,mock,ipa,mini,srs_format,mesh,mxu,large_forced,large_k23,
+                         quotient_terms,grand_products]
 
 With no argument every phase runs; with a comma-separated list only the
 device and build phases and the named ones do, and no ok line is printed.
@@ -49,9 +50,10 @@ Phases, each printing one JSON line as it ends:
                 the nibble-product probe's path (scripts/torch_mxu_probe.py)
   6 gwc_packed  on the flagship pk: one GWC prove and one packed-lookup
                 prove, each verified and a flipped byte rejected; then
-                (printed with quotient_terms, below) SHPLONK, GWC and IPA
-                proofs of the flagship with K4 equal those with the eager
-                term fold, K4 launched once a sub-coset
+                (printed with quotient_terms and grand_products, below)
+                SHPLONK, GWC and IPA proofs of the flagship with K4 equal
+                those with the eager term fold, K4 launched once a
+                sub-coset, and with K6 those with the eager grand products
     mesh        the multi-device prover (halo2_aes_tpu_torch/parallel/):
                 (a) a mesh of world size 1 over NCCL in this process
                 (file store under build/; no NCCL fails the phase): the
@@ -100,6 +102,15 @@ Phases, each printing one JSON line as it ends:
                 stacks: a whole k=20 sub-coset and one row chunk of a k=23
                 sub-coset (the host-rest form), bit-exact, with CUDA-event
                 times and the bound; with the flagship proofs above
+    grand_products  K6 (a grand-product column in three launches) at the
+                benchmark cell's shapes (2^20 rows: 17 lookup columns, one
+                launch sequence each and all 17 in one; 14 permutation
+                columns in 5 chunks over a random sigma), zero
+                denominators planted, against its plain version and the
+                eager path, bit-exact, with CUDA-event times, the bound
+                and each launch's device time; and SHPLONK, GWC and IPA
+                proofs of the flagship with K6 equal those with the eager
+                grand products, K6 launched three times a column
     large_k23   the same circuit at k=23, 24,671 blocks (full
                 capacity), nothing cached on disk: setup, keygen,
                 witness, prove, verify, a flipped byte rejected; each
@@ -138,6 +149,7 @@ line.  Any failure raises and the exit code is non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -822,17 +834,18 @@ def phase_golden(dev):
 
 K3_ENTRIES = {"K3_add": "add", "K3_fold": "fold", "K3_masked": "masked_add",
               "K3_double": "double_n"}
-PATH_KERNELS = ("K1", "K2", "K3", "K4", *K3_ENTRIES)
+PATH_KERNELS = ("K1", "K2", "K3", "K4", "K6", *K3_ENTRIES)
 PROBE_KERNELS = {"P1": "mul_probe", "P2a": "mont_mul_planes16",
                  "P2b": "mont_mul_planes13"}
 K5_ENTRIES = {"K5_product": "product", "K5_normalize": "normalize"}
 
 
 def reset_counts():
-    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_nibble, cuda_ntt,
-                                         cuda_probe, cuda_quotient)
+    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_grand, cuda_nibble,
+                                         cuda_ntt, cuda_probe, cuda_quotient)
 
-    for mod in (cuda_field, cuda_ntt, cuda_curve, cuda_quotient, cuda_nibble):
+    for mod in (cuda_field, cuda_ntt, cuda_curve, cuda_quotient, cuda_nibble,
+                cuda_grand):
         mod.LAUNCHES = 0
     for entry in cuda_curve.ENTRY_LAUNCHES:
         cuda_curve.ENTRY_LAUNCHES[entry] = 0
@@ -842,12 +855,12 @@ def reset_counts():
 
 
 def read_counts() -> dict:
-    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_nibble, cuda_ntt,
-                                         cuda_probe, cuda_quotient)
+    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_grand, cuda_nibble,
+                                         cuda_ntt, cuda_probe, cuda_quotient)
 
     out = {"K1": cuda_field.LAUNCHES, "K2": cuda_ntt.LAUNCHES,
            "K3": cuda_curve.LAUNCHES, "K4": cuda_quotient.LAUNCHES,
-           "K5": cuda_nibble.LAUNCHES}
+           "K5": cuda_nibble.LAUNCHES, "K6": cuda_grand.LAUNCHES}
     out.update({key: cuda_curve.ENTRY_LAUNCHES[name]
                 for key, name in K3_ENTRIES.items()})
     out.update({key: cuda_probe.LAUNCHES[name]
@@ -987,6 +1000,65 @@ def quotient_terms_kernels(dev) -> dict:
     rec = {"k20": kt.quotient_terms_times(dev, 20)}
     free()
     rec["k23_row_chunk"] = kt.quotient_terms_times(dev, 23)
+    free()
+    return rec
+
+
+@contextlib.contextmanager
+def eager_grand_products():
+    """The grand products' columns by the eager field ops in place of K6."""
+    from halo2_aes_tpu_torch.backend import lookup as LK
+    from halo2_aes_tpu_torch.backend import permutation as PERM
+
+    saved = LK.grand_product, LK.grand_product_many, PERM.grand_products
+    LK.grand_product, LK.grand_product_many, PERM.grand_products = (
+        LK.grand_product_eager, LK.grand_product_many_eager,
+        PERM.grand_products_eager)
+    try:
+        yield
+    finally:
+        LK.grand_product, LK.grand_product_many, PERM.grand_products = saved
+
+
+def grand_products_proofs(pk, values, dev) -> dict:
+    """On the flagship's pk (and an IPA pk of the same circuit): SHPLONK,
+    GWC and IPA proofs with K6 equal those with the eager grand products,
+    byte for byte, and K6 launched three times a column (the small
+    path's lookups are one batched column)."""
+    from halo2_aes_tpu_torch.backend import ipa as IPA
+    from halo2_aes_tpu_torch.backend import keygen as KG
+    from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
+
+    out = {}
+    ipa_pk = KG.keygen_cached(compile_circuit(AesConfig(**FLAGSHIP)),
+                              IPA.setup(FLAGSHIP["k"], dev,
+                                        cache_dir=os.path.join(REPO, "ptau")),
+                              cache_dir=os.path.join(REPO, "ptau"))
+    for multiopen, key in (("shplonk", pk), ("gwc", pk), ("ipa", ipa_pk)):
+        reset_counts()
+        proof = PV.prove(key, values, seed=5, multiopen=multiopen)
+        launches = read_counts()["K6"]
+        ph = PV._get_phases(key)
+        columns = ph.chunks + (ph.n_lk if ph.large() else min(ph.n_lk, 1))
+        if launches != 3 * columns:
+            raise AssertionError(f"grand_products: {launches} K6 launches in a "
+                                 f"{multiopen} prove, expected {3 * columns}")
+        with eager_grand_products():
+            eager = PV.prove(key, values, seed=5, multiopen=multiopen)
+        if proof != eager:
+            raise AssertionError(f"grand_products: the flagship {multiopen} proof "
+                                 "with K6 differs from the eager path's")
+        out[multiopen] = {"proof_bytes": len(proof), "k6_launches": launches,
+                          "equals_eager": True}
+    return out
+
+
+def grand_products_kernels(dev) -> dict:
+    """K6 at the benchmark cell's shapes (2^20 rows: 17 lookup columns, 5
+    permutation chunks over 14 columns) against its plain version and the
+    eager path, bit-exact, with CUDA-event times and the bound."""
+    rec = _script("torch_kernel_times").grand_products_times(dev, 20)
     free()
     return rec
 
@@ -2059,8 +2131,8 @@ def kernels_record(rec: dict, counts: dict, ipa_counts: dict,
     ``torch._int_mm`` (cuBLASLt int8) on the same products, without the
     fold; null for K5's normalize entry (no PyTorch call carries limbs),
     whose row sums the ``mxu`` phase's four carry sites."""
-    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_nibble, cuda_ntt,
-                                         cuda_probe, cuda_quotient)
+    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_grand, cuda_nibble,
+                                         cuda_ntt, cuda_probe, cuda_quotient)
 
     k3 = (cuda_curve.SOURCE, cuda_curve.REPLACES)
     rows = [("K1", "K1", "mont_mul", cuda_field.SOURCE, cuda_field.REPLACES),
@@ -2076,6 +2148,8 @@ def kernels_record(rec: dict, counts: dict, ipa_counts: dict,
                  cuda_probe.REPLACES["mul_probe"]))
     rows.append(("K4", "K4", "quotient_terms", cuda_quotient.SOURCE,
                  cuda_quotient.REPLACES))
+    rows.append(("K6", "K6", "grand_product", cuda_grand.SOURCE,
+                 cuda_grand.REPLACES))
     rows.append(("K5", "K5_product", "nibble_product", cuda_nibble.SOURCE,
                  cuda_nibble.REPLACES))
     rows.append(("K5_normalize", "K5_normalize", "nibble_normalize",
@@ -2120,7 +2194,7 @@ def main(only: str = "") -> int:
     if only:
         # development aid: some of the later phases alone (no ok line)
         for name in only.split(","):
-            if name in ("mesh", "large_forced", "quotient_terms"):
+            if name in ("mesh", "large_forced", "quotient_terms", "grand_products"):
                 _, pk, values, _ = phase_flagship(dev)
                 if name == "mesh":
                     phase_mesh(pk, values, dev)
@@ -2130,6 +2204,13 @@ def main(only: str = "") -> int:
                     free()
                     emit({"phase": "quotient_terms", "flagship_proofs": proofs,
                           "kernels": quotient_terms_kernels(dev)})
+                    continue
+                elif name == "grand_products":
+                    proofs = grand_products_proofs(pk, values, dev)
+                    del pk, values
+                    free()
+                    emit({"phase": "grand_products", "flagship_proofs": proofs,
+                          "kernels": grand_products_kernels(dev)})
                     continue
                 else:
                     emit({"phase": "large_forced",
@@ -2155,6 +2236,7 @@ def main(only: str = "") -> int:
     free()
     phase_gwc_packed(pk, values)
     q_proofs = quotient_terms_proofs(pk, values, dev)
+    g_proofs = grand_products_proofs(pk, values, dev)
     free()
     mesh_counts = phase_mesh(pk, values, dev)
     srs = pk.srs
@@ -2176,6 +2258,13 @@ def main(only: str = "") -> int:
     rec["K4"] = {"errors": {"k20": 0, "k23_row_chunk": 0}, "ms": k20["k4_ms"],
                  "plain_ms": k20["eager_ms"], "bound_ms": k20["bound_ms"],
                  "bound_by": k20["bound_by"]}
+    g_kernels = grand_products_kernels(dev)
+    emit({"phase": "grand_products", "flagship_proofs": g_proofs,
+          "kernels": g_kernels})
+    rec["K6"] = {"errors": {"k20": 0}, "ms": g_kernels["k6_all_ms"],
+                 "plain_ms": g_kernels["plain_perm_ms"]
+                 + g_kernels["lookups"] * g_kernels["plain_lookup_ms"],
+                 "bound_ms": g_kernels["bound_all_ms"], "bound_by": "bytes"}
     phase_mock(dev)
     free()
     ipa_counts = phase_ipa(dev)

@@ -15,9 +15,15 @@ from __future__ import annotations
 
 import torch
 
+from halo2_aes_tpu_torch.ops import cuda_grand as CG
 from halo2_aes_tpu_torch.ops import field as F
+from halo2_aes_tpu_torch.utils import timers
 
 FR = F.FR
+# products a row of a lookup's z column as the argument states them: the
+# numerator, the denominator, three for the batch inversion, the ratio and
+# the running product (the work the grand_products.lookup spans carry)
+MULS_PER_ROW = 7
 
 
 def _scatter_set(size: int, idx, vals, fill, dtype):
@@ -151,9 +157,40 @@ def grand_product(a, s, a_perm, s_perm, usable: int, beta_m, gamma_m, blinding):
     compressed input/table columns (n, 16); a_perm, s_perm: the permuted
     columns.  Rows past the blinding boundary take ``blinding`` (the
     value at row ``usable``, 1 on honest witnesses, is kept for the
+    l_last constraint).  K6 on a CUDA tensor, its plain version on a CPU
+    tensor (``ops/cuda_grand.py``); the k >= 19 product phase streams
+    the lookups through this one at a time; it equals the matching rows
+    of ``grand_product_many``.  One ``grand_products.lookup`` span."""
+    n = a.shape[0]
+    with timers.span("grand_products.lookup", fused=int(a.is_cuda), rows=n,
+                     polys=4, muls=MULS_PER_ROW):
+        return CG.lookup_z(a, s, a_perm, s_perm, usable, beta_m, gamma_m,
+                           blinding[None])
+
+
+def grand_product_many(a, s, a_perm, s_perm, L: int, usable: int,
+                       beta_m, gamma_m, blinding):
+    """All L lookups' z columns over FLAT (L*n, 16) tensors (lookup l at
+    rows [l*n, (l+1)*n)); blinding (L, blind_rows, 16).  One K6 launch
+    sequence (or its plain version) for all L, under one
+    ``grand_products.lookup`` span of L*n rows."""
+    with timers.span("grand_products.lookup", fused=int(a.is_cuda),
+                     rows=a.shape[0], polys=4, muls=MULS_PER_ROW):
+        return CG.lookup_z(a, s, a_perm, s_perm, usable, beta_m, gamma_m,
+                           blinding.reshape(L, -1, F.LIMBS))
+
+
+def grand_product_eager(a, s, a_perm, s_perm, usable: int, beta_m, gamma_m,
+                        blinding):
+    """``grand_product`` by the field's eager ops (batch_inv, cumprod): the
+    tests' reference for K6.  One lookup's z column: z[0] = 1,
+    z[j+1] = z[j] (A+beta)(S+gamma) / ((A'+beta)(S'+gamma)).  a, s: the
+    compressed input/table columns (n, 16); a_perm, s_perm: the permuted
+    columns.  Rows past the blinding boundary take ``blinding`` (the
+    value at row ``usable``, 1 on honest witnesses, is kept for the
     l_last constraint).  The k >= 19 product phase streams the lookups
     through this one at a time; it equals the matching rows of
-    ``grand_product_many``."""
+    ``grand_product_many_eager``."""
     n = a.shape[0]
     one = F.const(FR, "one", a.device)
     num = F.mont_mul(FR, F.add(FR, a, beta_m), F.add(FR, s, gamma_m))
@@ -164,11 +201,12 @@ def grand_product(a, s, a_perm, s_perm, usable: int, beta_m, gamma_m, blinding):
     return torch.cat([one[None], cum[:n - 1 - blinding.shape[0]], blinding])
 
 
-def grand_product_many(a, s, a_perm, s_perm, L: int, usable: int,
-                       beta_m, gamma_m, blinding):
-    """All L lookups' z columns over FLAT (L*n, 16) tensors (lookup l at
-    rows [l*n, (l+1)*n)); blinding (L, blind_rows, 16).  One batched
-    inversion and one segmented scan."""
+def grand_product_many_eager(a, s, a_perm, s_perm, L: int, usable: int,
+                             beta_m, gamma_m, blinding):
+    """``grand_product_many`` by the field's eager ops: all L lookups' z
+    columns over FLAT (L*n, 16) tensors (lookup l at rows [l*n,
+    (l+1)*n)); blinding (L, blind_rows, 16).  One batched inversion and
+    one segmented scan."""
     m = a.shape[0]
     n = m // L
     bf = blinding.shape[1]

@@ -13,8 +13,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from halo2_aes_tpu_torch.ops import cuda_grand as CG
 from halo2_aes_tpu_torch.ops import field as F
 from halo2_aes_tpu_torch.ops.ntt import domain
+from halo2_aes_tpu_torch.utils import timers
 
 FR = F.FR
 
@@ -98,6 +100,36 @@ def grand_products(k: int, usable: int, chunk_len: int, all_fld,
                    perm_columns, map_col, map_row, omega_pows, delta_pows,
                    beta_m, gamma_m, blinding):
     """Chunked permutation grand-product columns, FLAT (chunks*n, 16):
+    z_t[0] = z_{t-1}[usable] (chunk linking), z_0[0] = 1; rows past the
+    blinding boundary take ``blinding`` (chunks, blind_rows, 16).  One
+    K6 launch sequence a chunk on a CUDA tensor, its plain version on a
+    CPU tensor (``ops/cuda_grand.py``); sigma's labels are gathered from
+    the maps inside it, and chunk t reads its link from chunk t-1's
+    column on the device.  One ``grand_products.perm`` span a chunk."""
+    n = 1 << k
+    m = len(perm_columns)
+    chunks = -(-m // chunk_len)
+    dev = all_fld.device
+    table = CG.perm_table(beta_m, gamma_m, delta_pows)
+    out = torch.empty((chunks * n, F.LIMBS), dtype=torch.int32, device=dev)
+    init = F.const(FR, "one", dev)
+    for t in range(chunks):
+        cols = [(perm_columns[i], i)
+                for i in range(t * chunk_len, min((t + 1) * chunk_len, m))]
+        with timers.span("grand_products.perm", fused=int(dev.type == "cuda"),
+                         rows=n, polys=len(cols), muls=4 * len(cols) + 4):
+            CG.perm_z(all_fld, cols, map_col, map_row, omega_pows, table,
+                      usable, init, blinding[t], out[t * n:(t + 1) * n])
+        init = out[t * n + usable]
+    return out
+
+
+def grand_products_eager(k: int, usable: int, chunk_len: int, all_fld,
+                         perm_columns, map_col, map_row, omega_pows, delta_pows,
+                         beta_m, gamma_m, blinding):
+    """``grand_products`` by the field's eager ops (sigma and the identity
+    labels rebuilt, batch_inv, cumprod): the tests' reference for K6.
+    Chunked permutation grand-product columns, FLAT (chunks*n, 16):
     z_t[0] = z_{t-1}[usable] (chunk linking), z_0[0] = 1; rows past the
     blinding boundary take ``blinding`` (chunks, blind_rows, 16)."""
     n = 1 << k

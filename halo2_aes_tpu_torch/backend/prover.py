@@ -85,7 +85,8 @@ from halo2_aes_tpu_torch.utils import timers
 
 FR = F.FR
 LIMBS = F.LIMBS
-_R_LIMBS = F.int_to_limbs(FR.modulus)
+_R_WORDS = np.array([(FR.modulus >> (64 * i)) & ((1 << 64) - 1) for i in range(4)],
+                    dtype=np.uint64)
 # the sliced phases run from this k on (tests and the chip smoke lower it
 # to hold the sliced path against the unsliced one on small circuits)
 _LARGE_MIN_K = 19
@@ -192,24 +193,22 @@ def _rand_field(rng, *shape) -> np.ndarray:
     """Exactly-uniform random field elements as (..., 16) numpy limbs:
     254-bit candidates from ``rng`` (None -> os.urandom), rejection-
     sampled below r, read as Montgomery representations (the
-    reference's draw, byte for byte)."""
+    reference's draw, byte for byte).  A candidate is compared as four
+    little-endian 64-bit words: its top word decides unless it equals
+    r's (odds 2^-62), and then the whole number does."""
     count = int(np.prod(shape, dtype=np.int64)) if shape else 1
     randbytes = os.urandom if rng is None else rng.bytes
     out = np.zeros((count, LIMBS), np.uint32)
     need = np.ones(count, bool)
     while need.any():
         m = int(need.sum())
-        cand = (np.frombuffer(randbytes(32 * m), dtype="<u2")
-                .reshape(m, LIMBS).astype(np.uint32).copy())
-        cand[:, -1] &= 0x3FFF
-        lt = np.zeros(m, bool)
-        gt = np.zeros(m, bool)
-        for i in range(LIMBS - 1, -1, -1):
-            li, ri = cand[:, i], _R_LIMBS[i]
-            lt |= ~gt & (li < ri)
-            gt |= ~lt & (li > ri)
+        cand = np.frombuffer(randbytes(32 * m), dtype="<u8").reshape(m, 4).copy()
+        cand[:, 3] &= np.uint64((1 << 62) - 1)
+        lt = cand[:, 3] < _R_WORDS[3]
+        for j in np.flatnonzero(cand[:, 3] == _R_WORDS[3]):
+            lt[j] = int.from_bytes(cand[j].tobytes(), "little") < FR.modulus
         idx = np.flatnonzero(need)[lt]
-        out[idx] = cand[lt]
+        out[idx] = cand[lt].view("<u2").astype(np.uint32)
         need[idx] = False
     return out.reshape(*shape, LIMBS)
 

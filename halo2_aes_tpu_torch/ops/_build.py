@@ -70,6 +70,12 @@ SIGNATURES = {
     # p[8] (host), n0inv, stream
     "quotient_terms_launch": [_P] * 5 + [ctypes.c_int, _P, ctypes.c_int]
                              + [_I] * 4 + [ctypes.c_int] * 2 + [_P, _U, _P],
+    # kind, out, scratch, four inputs, table, init, blinding, n, usable,
+    # blinding rows, segments, chunk columns, their columns (int64, host),
+    # their permutation columns (int32, host), p[8] (host), n0inv, R mod p
+    # [8] (host), R^3 mod p [8] (host), stream
+    "grand_product_launch": [ctypes.c_int] + [_P] * 9 + [_I] * 4
+                            + [ctypes.c_int, _P, _P, _P, _U, _P, _P, _P],
 }
 
 

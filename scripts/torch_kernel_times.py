@@ -3,7 +3,8 @@
 shapes of a k=20 prove, on one CUDA card.
 
   python3 scripts/torch_kernel_times.py [--tree DIR] [--lg 20] [--count 45]
-      [--polys 8] [--quotient-k 20,23] [--split-lg 23] [--only-splits]
+      [--polys 8] [--quotient-k 20,23] [--grand-k 20] [--split-lg 23]
+      [--only-splits]
       [--out FILE]
 
 ``--tree`` imports ``halo2_aes_tpu_torch`` from another checkout (default:
@@ -29,6 +30,12 @@ else through ``cuda_ntt.ntt_fused``).  CUDA-event medians
             the bound of the work the constraint system asks; from
             ``rest.HOST_REST_MIN_K`` on one row chunk of the host-rest
             form (the second of ``_QUOTIENT_ROW_CHUNKS``) of a sub-coset
+  K6        with ``--grand-k K,..`` (where the tree has
+            ``ops/cuda_grand.py``): the benchmark cell's grand products at
+            2^K rows (17 lookup columns, 14 permutation columns in 5
+            chunks) over random columns with zero denominators planted,
+            K6 against its plain version and the eager path, bit-exact,
+            with times, the bound and each launch's device time
   splits    with ``--split-lg L`` (where the tree has ``ops/ntt.ROW_CAP``):
             count transforms of 2^L with a coset shift, and inverse, at
             each row cap that gives another split of L (rows of at most
@@ -181,6 +188,154 @@ def quotient_terms_times(dev, k: int) -> dict:
     return rec
 
 
+def grand_products_times(dev, k: int, bf: int | None = None) -> dict:
+    """K6 on the benchmark cell's grand products at 2^k rows: its 17
+    lookup columns (one launch sequence each, as the k >= 19 path runs
+    them, and all 17 in one) and its 14 permutation columns in 5 chunks,
+    over random canonical columns and a random sigma, with zero
+    denominators planted in every column; bit-exact against K6's plain
+    version and against the eager path; CUDA-event medians of K6, the
+    plain version and the eager path; the bound of the work the argument
+    asks (each input column read and z written once; 7 products a
+    lookup row, 4c + 4 a row of a chunk of c columns); each K6 launch's
+    device time from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from halo2_aes_tpu_torch.backend import lookup as LK
+    from halo2_aes_tpu_torch.backend import permutation as PERM
+    from halo2_aes_tpu_torch.ops import cuda_grand as CG
+    from halo2_aes_tpu_torch.ops import field as F
+    from halo2_aes_tpu_torch.ops.timing import time_ms
+
+    ph = cell_phases(dev, k)
+    FR = F.FR
+    n = 1 << k
+    bf = ph.bf if bf is None else bf
+    usable = n - bf - 1
+    L, m, chunk_len = ph.n_lk, len(ph.cs.perm_columns), ph.chunk_len
+    chunks = -(-m // chunk_len)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(k + 1000)
+    beta, gamma = (F.encode(FR, v, dev) for v in (0x1234567, 0x89ABCDEF))
+    a, s, ap, sp = (random_stack(F, L, n, gen, dev) for _ in range(4))
+    lk_blind = random_stack(F, L, bf, gen, dev).reshape(L, bf, F.LIMBS)
+    planted = [1, n // 3, usable - 1]          # zero denominators: A' = -beta
+    for lk in range(L):
+        ap[[lk * n + r for r in planted]] = F.neg(FR, beta)
+    fld = random_stack(F, m, n, gen, dev)
+    cells = torch.randperm(m * n, generator=gen, device=dev)
+    map_col, map_row = (cells // n).reshape(m, n), (cells % n).reshape(m, n)
+    del cells
+    omega, delta = PERM._label_tables(k, m, dev)
+    for c, r in ((0, 2), (m // 2, n // 2), (m - 1, usable - 1)):   # sigma's factor 0
+        sig = F.mont_mul(FR, delta[map_col[c, r]], omega[map_row[c, r]])
+        fld[c * n + r] = F.neg(FR, F.add(FR, F.mont_mul(FR, beta, sig), gamma))
+    perm_blind = random_stack(F, chunks, bf, gen, dev).reshape(chunks, bf, F.LIMBS)
+    one = F.const(FR, "one", dev)
+    table = torch.stack([beta, gamma])
+    col = [slice(lk * n, (lk + 1) * n) for lk in range(L)]
+    perm_args = (k, usable, chunk_len, fld, list(range(m)), map_col, map_row,
+                 omega, delta, beta, gamma, perm_blind)
+
+    def k6_lookups():
+        return [LK.grand_product(a[c], s[c], ap[c], sp[c], usable, beta, gamma,
+                                 lk_blind[i]) for i, c in enumerate(col)]
+
+    def k6_lookups_batched():
+        return CG.lookup_z(a, s, ap, sp, usable, beta, gamma, lk_blind)
+
+    def plain_lookup(i):
+        c = col[i]
+        return CG.grand_product_plain(
+            *CG.lookup_factors(a[c], s[c], ap[c], sp[c], table), n, usable,
+            one[None], lk_blind[i:i + 1])
+
+    def k6_perm():
+        return PERM.grand_products(*perm_args)
+
+    def plain_perm():
+        ptable = CG.perm_table(beta, gamma, delta)
+        out, init = [], one
+        for t in range(chunks):
+            cols = [(i, i) for i in range(t * chunk_len, min((t + 1) * chunk_len, m))]
+            out.append(CG.grand_product_plain(
+                *CG.perm_factors(fld, n, cols, map_col, map_row, omega, ptable),
+                n, usable, init[None], perm_blind[t:t + 1]))
+            init = out[-1][usable]
+        return torch.cat(out)
+
+    before = CG.LAUNCHES
+    got = k6_lookups()
+    launches_lookups = CG.LAUNCHES - before
+    for i in range(L):
+        if not torch.equal(got[i], plain_lookup(i)):
+            raise AssertionError(f"K6: lookup column {i} at 2^{k} differs from "
+                                 "its plain version")
+    if not torch.equal(got[0], LK.grand_product_eager(
+            a[col[0]], s[col[0]], ap[col[0]], sp[col[0]], usable, beta, gamma,
+            lk_blind[0])):
+        raise AssertionError("K6: lookup column 0 differs from the eager path")
+    if not torch.equal(torch.cat(got), k6_lookups_batched()):
+        raise AssertionError("K6: the 17 lookups in one launch sequence differ "
+                             "from one sequence a lookup")
+    del got
+    before = CG.LAUNCHES
+    z_perm = k6_perm()
+    launches_perm = CG.LAUNCHES - before
+    if not torch.equal(z_perm, plain_perm()):
+        raise AssertionError(f"K6: the permutation columns at 2^{k} differ "
+                             "from the plain version")
+    if not torch.equal(z_perm, PERM.grand_products_eager(*perm_args)):
+        raise AssertionError(f"K6: the permutation columns at 2^{k} differ "
+                             "from the eager path")
+    del z_perm
+
+    def bound(polys, muls, rows):
+        by_bytes = (polys + 1) * rows * 64 / 3.35e12 * 1e3
+        by_ops = muls * rows * 136 / 16.75e12 * 1e3
+        return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+    lk_bound = bound(4, LK.MULS_PER_ROW, n)
+    sizes = [min(chunk_len, m - t * chunk_len) for t in range(chunks)]
+    perm_bound = sum(bound(c, 4 * c + 4, n)[0] for c in sizes)
+    rec = {"k": k, "rows": n, "usable": usable, "blinding_rows": bf,
+           "lookups": L, "perm_columns": m, "chunk_len": chunk_len,
+           "chunks": chunks, "bit_exact": True, "zero_denominators_planted":
+           {"lookup_rows": planted, "perm_cells": 3},
+           "launches": {"lookups": launches_lookups, "perm": launches_perm},
+           "k6_lookup_ms": time_ms(lambda: LK.grand_product(
+               a[col[0]], s[col[0]], ap[col[0]], sp[col[0]], usable, beta, gamma,
+               lk_blind[0]), 10, 5),
+           "k6_lookups_ms": time_ms(k6_lookups, 2, 5),
+           "k6_lookups_batched_ms": time_ms(k6_lookups_batched, 2, 5),
+           "k6_perm_ms": time_ms(k6_perm, 3, 5),
+           "plain_lookup_ms": time_ms(lambda: plain_lookup(0), 1, 3),
+           "plain_perm_ms": time_ms(plain_perm, 1, 3),
+           "eager_lookup_ms": time_ms(lambda: LK.grand_product_eager(
+               a[col[0]], s[col[0]], ap[col[0]], sp[col[0]], usable, beta, gamma,
+               lk_blind[0]), 1, 3),
+           "eager_perm_ms": time_ms(lambda: PERM.grand_products_eager(*perm_args),
+                                    1, 3),
+           "bound_lookup_ms": lk_bound[0], "bound_lookup_by": lk_bound[1],
+           "bound_perm_ms": perm_bound}
+    rec["bound_all_ms"] = L * lk_bound[0] + perm_bound
+    rec["k6_all_ms"] = rec["k6_lookups_ms"] + rec["k6_perm_ms"]
+    rec["eager_all_ms"] = L * rec["eager_lookup_ms"] + rec["eager_perm_ms"]
+    rec["share_of_bound"] = rec["bound_all_ms"] / rec["k6_all_ms"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        k6_lookups()
+        k6_perm()
+        torch.cuda.synchronize()
+    rec["kernels_us"] = {e.key: {"calls": e.count,
+                                 "device_us": getattr(e, "device_time_total",
+                                                      getattr(e, "cuda_time_total", 0))}
+                         for e in prof.key_averages() if "grand_" in e.key}
+    del a, s, ap, sp, fld, map_col, map_row
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=REPO)
@@ -188,6 +343,7 @@ def main() -> int:
     ap.add_argument("--count", type=int, default=45)
     ap.add_argument("--polys", type=int, default=8)
     ap.add_argument("--quotient-k", default="20")
+    ap.add_argument("--grand-k", default="")
     ap.add_argument("--split-lg", type=int, default=0)
     ap.add_argument("--only-splits", action="store_true")
     ap.add_argument("--out", default=None)
@@ -223,6 +379,9 @@ def main() -> int:
             "cuda_quotient.py")):
         out["quotient_terms"] = [quotient_terms_times(dev, int(k))
                                  for k in args.quotient_k.split(",")]
+    if args.grand_k:
+        out["grand_products"] = [grand_products_times(dev, int(k))
+                                 for k in args.grand_k.split(",")]
     if args.split_lg:
         out["splits"] = split_times(N, cuda_ntt, F, random_fr, args.split_lg,
                                     count, time_ms, dev)

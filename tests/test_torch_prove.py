@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from halo2_aes_tpu.backend import keygen as ref_keygen
+from halo2_aes_tpu.backend import prover as ref_prover
 from halo2_aes_tpu.backend import srs as ref_srs
 from halo2_aes_tpu.backend import verifier as ref_verifier
 from halo2_aes_tpu.circuit import ir as ref_ir
@@ -262,3 +263,36 @@ def test_cli_parses_checkpoint_dir():
     assert (args.k, args.sets, args.blocks, args.checkpoint_dir) == (
         20, 4, 3082, "ckpt")
     assert cli.parser().parse_args(["--device", "cpu"]).checkpoint_dir is None
+
+
+@pytest.mark.parametrize("shape", [(1 << 16,), (5, 6), (17, 6), (3,), ()])
+@pytest.mark.parametrize("seed", [0, 7])
+def test_rand_field_is_the_references_draw(shape, seed):
+    """The blinding and random-poly draw equals the reference's, value for
+    value, from the same generator."""
+    got = prover._rand_field(np.random.default_rng(seed), *shape)
+    want = np.asarray(ref_prover._rand_field(np.random.default_rng(seed), *shape))
+    assert got.dtype == np.uint32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_rand_field_compares_ties_whole():
+    """Candidates whose top 64-bit word equals r's are compared in full:
+    r and r + 1 are rejected, r - 1 and r - 2 kept, in the draw's order."""
+
+    r = F.FR.modulus
+
+    class Bytes:
+        def __init__(self, *rounds):
+            self.rounds = list(rounds)
+
+        def bytes(self, n):
+            vals = self.rounds.pop(0)
+            assert n == 32 * len(vals)
+            return b"".join(v.to_bytes(32, "little") for v in vals)
+
+    rounds = ([r, r - 1, r + 1, 5], [7, r - 2])
+    got = prover._rand_field(Bytes(*rounds), 4)
+    want = np.asarray(ref_prover._rand_field(Bytes(*rounds), 4))
+    np.testing.assert_array_equal(got, want)
+    assert [F.limbs_to_int(row) for row in got] == [7, r - 1, r - 2, 5]

@@ -30,7 +30,7 @@ PHASES = {"shplonk": ["advice", "lookup_permuted", "grand_products", "quotient",
                   "evals", "gwc_open"]}
 READERS = ["span_s.quotient", "span_s.grand_products", "span_s.quotient_terms",
            "span_s.commit", "span_s.witness", "ntt_many_roofline.in_proof",
-           "quotient_terms_roofline"]
+           "quotient_terms_roofline", "grand_products_roofline"]
 
 
 @pytest.fixture(scope="module")
@@ -110,6 +110,30 @@ def test_ntt_and_commit_spans_carry_their_shapes(toy, monkeypatch):
     assert terms and all(r.attrs["terms"] > 0 for r in terms)
 
 
+def test_grand_product_spans_sit_under_their_phase(toy):
+    """One ``grand_products.lookup`` span a lookup column (one for the
+    batched columns of the small path) and one ``grand_products.perm``
+    span a permutation chunk, inside the ``grand_products`` phase, with
+    the argument's work; ``fused`` 0: the CPU takes K6's plain version."""
+    pk, _ = toy
+    tree = _recorded(*toy)[1]
+    phase = next(r for r in tree.spans if r.name == "grand_products"
+                 and r.parent == tree.root.id)
+    ph = prover._get_phases(pk)
+    lk = [r for r in tree.spans if r.name == "grand_products.lookup"]
+    perm = [r for r in tree.spans if r.name == "grand_products.perm"]
+    assert len(perm) == ph.chunks and len(lk) == (1 if ph.n_lk else 0)
+    assert all(r.parent == phase.id for r in lk + perm)
+    assert all(phase.start_ns <= r.start_ns <= r.end_ns <= phase.end_ns
+               for r in lk + perm)
+    assert [r.attrs for r in lk] == [{"fused": 0, "rows": ph.n_lk * ph.n,
+                                      "polys": 4, "muls": 7}] * len(lk)
+    polys = [len(pk.vk.cs.perm_columns[t * ph.chunk_len:(t + 1) * ph.chunk_len])
+             for t in range(ph.chunks)]
+    assert [r.attrs for r in perm] == [{"fused": 0, "rows": ph.n, "polys": c,
+                                        "muls": 4 * c + 4} for c in polys]
+
+
 def test_spans_share_the_profilers_clock(toy):
     timers.clear()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -146,6 +170,7 @@ def test_benchmark_readers_read_the_toy(toy):
     assert got["span_s.quotient_terms"] <= got["span_s.quotient"]
     assert got["ntt_many_roofline.in_proof"] <= 100
     assert got["quotient_terms_roofline"] <= 100
+    assert got["grand_products_roofline"] <= 100
 
 
 def test_phase_timers_open_spans_and_table():
