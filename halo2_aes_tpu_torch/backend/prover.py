@@ -20,10 +20,10 @@ order (``seed=None`` means ``os.urandom``).
 
 The quotient is evaluated per SUB-COSET: the extended coset of ratio R
 splits into R interleaved size-n cosets {g w_ext^s w^j}; rotations stay
-intra-coset rolls.  On a card the constraint terms of a sub-coset are
-one K4 launch (``quotient_subcoset_fused``: the terms lowered once per
-pk by backend/term_program.py); on the CPU they are folded eagerly, one
-field op at a time, with the same bits.
+intra-coset rolls.  The constraint terms of a sub-coset are one launch
+of the term program (``quotient_subcoset``: the terms lowered once per
+pk by backend/term_program.py) on every device: K4 on a card, its plain
+version on the CPU.
 
 From k = ``_LARGE_MIN_K`` (19) on, the reference's large path runs: the
 quotient's coset NTTs go B polys at a time into one output
@@ -59,7 +59,6 @@ fold and finish, every transform (``ntt``) and every commitment
 from __future__ import annotations
 
 import functools
-import itertools
 import os
 
 import numpy as np
@@ -92,16 +91,14 @@ _R_WORDS = np.array([(FR.modulus >> (64 * i)) & ((1 << 64) - 1) for i in range(4
 _LARGE_MIN_K = 19
 # Forms each (below rest.HOST_REST_MIN_K, from it): the second keeps a
 # k >= 23 phase's transients within one card (without it k=23's prove
-# peaked at 94-95% of an 80 GB card, or ran out of memory) and costs k=20's
-# prove time (scripts/torch_rest_forms.py; PERF.md §6, PR 12).  Row chunks
-# of each sub-coset's quotient fold on the large path; polys per
+# peaked at 94.9% of an 80 GB card, or ran out of memory) and costs k=20's
+# prove time (scripts/torch_rest_forms.py; PERF.md §6, PR 12).  Polys per
 # evaluation stack on the large path (an evaluation's halving adds take
 # ~8x its stack); the field-ordered permuted lookup pairs one lookup at
 # a time (the sort's int64 keys one lookup wide).
-_QUOTIENT_ROW_CHUNKS = (1, 4)
 _EVAL_STACK = (12, 4)
 _STREAMED_PAIRS = (False, True)
-HOST_REST_FORMS = ("_QUOTIENT_ROW_CHUNKS", "_EVAL_STACK", "_STREAMED_PAIRS")
+HOST_REST_FORMS = ("_EVAL_STACK", "_STREAMED_PAIRS")
 # the spans that split a prove (the root span "prove") into its phases,
 # each closed right after the Fiat-Shamir challenges that end it: advice
 # at theta, the permuted lookup pairs at beta and gamma, the grand
@@ -312,7 +309,7 @@ class _Phases:
         self.q_static_keys = skeys
         self.q_dyn_keys = dkeys
         # the constraint terms as one program over a row of the sub-coset's
-        # stacks (static, then dynamic), for K4 (quotient_subcoset_fused)
+        # stacks (static, then dynamic), run by quotient_subcoset
         self.terms = TP.lower(cs, skeys + dkeys, self.usable, self.n)
         self._terms_code = torch.as_tensor(self.terms.code, device=self.dev)
         self._terms_consts = self.encode(list(self.terms.consts)).reshape(-1, LIMBS)
@@ -572,8 +569,29 @@ class _Phases:
 
     def quotient_subcoset(self, static_evals, dyn_evals, theta_m, beta_m,
                           gamma_m, y_m, shift_pows, zh_inv):
-        """One sub-coset's quotient values: Horner-fold every constraint
-        term with y, divide by Z_H."""
+        """One sub-coset's quotient values: the term program
+        (``self.terms``) in one launch, the term fold and the Z_H division
+        with no temporaries (K4 on CUDA tensors, its plain version on the
+        CPU)."""
+        table = self.terms_table(theta_m, beta_m, gamma_m, y_m, shift_pows,
+                                 zh_inv)
+        out = torch.empty((self.n, LIMBS), dtype=torch.int32, device=self.dev)
+        return CQ.quotient_terms(self._terms_code, self.terms.slots, table,
+                                 static_evals, dyn_evals,
+                                 self.dom.omega_powers(self.dev), 0, out)
+
+    def terms_table(self, theta_m, beta_m, gamma_m, y_m, shift_pows, zh_inv):
+        """The term program's constant table for one sub-coset."""
+        return CQ.constant_table(
+            self._terms_consts, y_m, zh_inv, theta_m, beta_m, gamma_m,
+            F.mont_mul(FR, self._delta_pows, shift_pows[1]))
+
+    def quotient_subcoset_eager(self, static_evals, dyn_evals, theta_m, beta_m,
+                                gamma_m, y_m, shift_pows, zh_inv):
+        """The same values by the eager field ops: Horner-fold every
+        constraint term with y, divide by Z_H.  The prover never calls
+        it; the tests and ``chip_smoke.py`` hold the term program against
+        it."""
         Ctx = self._subcoset_ctx(static_evals, dyn_evals, theta_m, beta_m,
                                  gamma_m, shift_pows)
         acc = None
@@ -582,100 +600,21 @@ class _Phases:
                 FR, F.mont_mul(FR, acc, y_m), term)
         return F.mont_mul(FR, acc, zh_inv)
 
-    def n_constraint_terms(self) -> int:
-        perm = 2 * self.chunks + 1 if self.cs.perm_columns else 0
-        return len(self.cs.gates) + perm + 5 * self.n_lk
-
-    def _quotient_terms_slice(self, terms, count: int, y_m):
-        """Horner-y fold of the next ``count`` terms of the iterator
-        ``terms``.  (The reference's form takes [lo, hi) and re-traces the
-        whole term list, its compiler dropping the rest; eager terms are
-        computed where they are yielded, so the port walks one iterator
-        through the slices instead.)"""
-        acc = None
-        for term in itertools.islice(terms, count):
-            acc = term if acc is None else F.add(
-                FR, F.mont_mul(FR, acc, y_m), term)
-        return acc
-
-    def quotient_subcoset_sliced(self, static_evals, dyn_evals, theta_m,
-                                 beta_m, gamma_m, y_m, shift_pows, zh_inv,
-                                 n_parts: int = 3):
-        """The term fold in ``n_parts`` Horner partials joined by
-        y^(hi-lo) bridges, then the Z_H division, over the
-        ``_QUOTIENT_ROW_CHUNKS`` form's row chunks of the sub-coset: equal
-        to ``quotient_subcoset``."""
-        T = self.n_constraint_terms()
-        bounds = [round(j * T / n_parts) for j in range(n_parts + 1)]
-        n = self.n
-        chunks = _QUOTIENT_ROW_CHUNKS[self.host_rest()]
-        out = None
-        for c in range(chunks):
-            rows = None if chunks == 1 else (c * n // chunks, (c + 1) * n // chunks)
-            terms = PROTO.constraint_terms(self.cs, self._subcoset_ctx(
-                static_evals, dyn_evals, theta_m, beta_m, gamma_m, shift_pows,
-                rows))
-            acc = None
-            for lo, hi in zip(bounds, bounds[1:]):
-                if lo == hi:
-                    continue
-                part = self._quotient_terms_slice(terms, hi - lo, y_m)
-                acc = part if acc is None else F.add(
-                    FR, F.mont_mul(FR, acc, F.pow_const(FR, y_m, hi - lo)), part)
-            acc = F.mont_mul(FR, acc, zh_inv)
-            if chunks == 1:
-                return acc
-            if out is None:
-                out = torch.empty((n, LIMBS), dtype=acc.dtype, device=acc.device)
-            out[rows[0]:rows[1]] = acc
-            del terms, acc, part
-        return out
-
-    def quotient_subcoset_fused(self, static_evals, dyn_evals, theta_m, beta_m,
-                                gamma_m, y_m, shift_pows, zh_inv):
-        """The term program (``self.terms``) in one K4 launch per row chunk
-        of the ``_QUOTIENT_ROW_CHUNKS`` form: the term fold and the Z_H
-        division with no temporaries.  Equal to ``quotient_subcoset``
-        (on CPU tensors through K4's plain version)."""
-        n = self.n
-        dshift = F.mont_mul(FR, self._delta_pows, shift_pows[1])
-        table = CQ.constant_table(self._terms_consts, y_m, zh_inv, theta_m,
-                                  beta_m, gamma_m, dshift)
-        omega = self.dom.omega_powers(self.dev)
-        out = torch.empty((n, LIMBS), dtype=torch.int32, device=self.dev)
-        chunks = _QUOTIENT_ROW_CHUNKS[self.host_rest()]
-        for c in range(chunks):
-            lo, hi = c * n // chunks, (c + 1) * n // chunks
-            CQ.quotient_terms(self._terms_code, self.terms.slots, table,
-                              static_evals, dyn_evals, omega, lo, out[lo:hi])
-        return out
-
     def _subcoset_ctx(self, static_evals, dyn_evals, theta_m, beta_m, gamma_m,
-                      shift_pows, rows=None):
-        """The protocol Context over one sub-coset's pre-evaluated stacks,
-        or over its rows [lo, hi) where ``rows`` = (lo, hi) is given (a
-        rotation by r reads rows [lo + r, hi + r) mod n: the rows of the
-        rolled column)."""
+                      shift_pows):
+        """The protocol Context over one sub-coset's pre-evaluated stacks."""
         n = self.n
-        lo, hi = (0, n) if rows is None else rows
         by_key = {key: static_evals[i * n:(i + 1) * n]
                   for i, key in enumerate(self.q_static_keys)}
         by_key.update({key: dyn_evals[i * n:(i + 1) * n]
                        for i, key in enumerate(self.q_dyn_keys)})
-        pts = F.mont_mul(FR, self.dom.omega_powers(self.dev)[lo:hi], shift_pows[1])
+        pts = F.mont_mul(FR, self.dom.omega_powers(self.dev), shift_pows[1])
         delta_pows = self._delta_pows
         usable = self.usable
 
         def rot_roll(arr, rot=0):
             r = (usable if rot == "u" else rot) % n
-            if rows is None:
-                return torch.roll(arr, -r, 0) if r else arr
-            a, b = lo + r, hi + r
-            if b <= n:
-                return arr[a:b]
-            if a >= n:
-                return arr[a - n:b - n]
-            return torch.cat([arr[a:], arr[:b - n]])
+            return torch.roll(arr, -r, 0) if r else arr
 
         return _context(
             alg=self.alg, one=F.const(FR, "one", self.dev),
@@ -1159,10 +1098,6 @@ def _prove(phase, pk, values, instances, seed, mesh, mesh_axis, multiopen,
                 (n_static + len(ph.q_dyn_keys) * n, LIMBS), dtype=torch.int32,
                 device=dev)
         n_polys = len(ph.q_dyn_keys) + len(ph.q_static_keys)
-        # CUDA stacks take K4; the CPU keeps the eager fold
-        fused = dev.type == "cuda"
-        qsub = (ph.quotient_subcoset_fused if fused else
-                ph.quotient_subcoset_sliced if large else ph.quotient_subcoset)
         for s in range(ph.ratio):
             shift_pows, zh_inv = _subcoset_tables(ph.k, ph.ext_k, s, dev)
             with timers.span("quotient.subcoset_evals", polys=n_polys):
@@ -1180,11 +1115,12 @@ def _prove(phase, pk, values, instances, seed, mesh, mesh_axis, multiopen,
                     static_evals = ph.static_subcoset_evals(s)
             # the Horner fold of the constraint terms and the Z_H division;
             # muls, polys and rows give the work the constraint system asks
-            with timers.span("quotient.terms", terms=ph.n_constraint_terms(),
-                             fused=int(fused), muls=ph.terms.muls,
+            with timers.span("quotient.terms", terms=ph.terms.terms,
+                             fused=int(dev.type == "cuda"), muls=ph.terms.muls,
                              polys=ph.terms.polys, rows=n):
-                q_subs.append(qsub(static_evals, dyn_evals, theta_m,
-                                   beta_m, gamma_m, y_m, shift_pows, zh_inv))
+                q_subs.append(ph.quotient_subcoset(
+                    static_evals, dyn_evals, theta_m, beta_m, gamma_m, y_m,
+                    shift_pows, zh_inv))
             del dyn_evals, static_evals
         if large:
             del subcoset_evals

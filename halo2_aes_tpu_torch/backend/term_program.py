@@ -6,10 +6,13 @@ a recording algebra and returns a ``TermProgram``: a list of
 instructions over per-row value slots that computes, for one row of a
 sub-coset, every term in canonical order, folds each into the
 accumulator as soon as it is made (acc = acc * y + term) and ends with
-the Z_H division.  K4 (``ops/cuda_quotient.py``) runs it for every row
-of a sub-coset in one launch; its plain version runs it with the
-field's tensor ops.  The field math is exact, so the program gives the
-eager fold's bits whatever order it computes in.
+the Z_H division.  The prover runs it for every sub-coset on every
+device (``prover._Phases.quotient_subcoset``): K4
+(``ops/cuda_quotient.py``) over every row in one launch on a card, its
+plain version with the field's tensor ops on the CPU.  The field math
+is exact, so the program gives the eager fold's bits
+(``quotient_subcoset_eager``, the tests' reference) whatever order it
+computes in.
 
 The instruction set is K4's (``ops/cuda_quotient.py``).  The constant
 table's rows after ``TABLE_FIXED`` hold delta^i * shift for each

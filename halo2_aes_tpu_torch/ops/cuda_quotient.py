@@ -10,12 +10,13 @@ accumulator with y as it is made, then the Z_H division; rotations are
 index arithmetic on the sub-coset's stacks, nothing is copied or
 widened.  What bounds it and how: see the source.
 
-The prover launches it for CUDA tensors only; on the CPU it keeps the
-eager fold (``prover._Phases.quotient_subcoset`` and its sliced form),
-which gives the same bits.  ``quotient_terms_plain`` runs the same
-instructions with the field's tensor ops: the tests hold the lowered
-program against the eager fold with it, and ``chip_smoke.py`` holds K4
-against the eager fold on the card.
+The prover runs the program on every device
+(``prover._Phases.quotient_subcoset``): ``quotient_terms`` launches K4
+for CUDA tensors and runs ``quotient_terms_plain``, the same
+instructions with the field's tensor ops, for CPU tensors.  The eager
+fold (``prover._Phases.quotient_subcoset_eager``) gives the same bits
+and stays as the reference: the tests hold the plain version against
+it, and ``chip_smoke.py`` holds K4 against it on the card.
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ TABLE_Y, TABLE_ZH_INV, TABLE_THETA, TABLE_BETA, TABLE_GAMMA = range(5)
 TABLE_FIXED = 5          # rows before the permutation's delta^i * shift
 LAUNCHES = 0      # kernel launches since the last reset (chip_smoke reads it)
 SOURCE = "halo2_aes_tpu_torch/csrc/quotient_terms.cu"
-REPLACES = "none: the eager constraint-term fold of backend/prover.py"
+REPLACES = ("none: the eager constraint-term fold, "
+            "backend/prover._Phases.quotient_subcoset_eager")
 THREADS = 128
 SMEM_BYTES = 232448        # the most dynamic shared memory a block may take
 

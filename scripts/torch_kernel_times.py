@@ -23,13 +23,13 @@ else through ``cuda_ntt.ntt_fused``).  CUDA-event medians
   msm_many  ``polys`` commitments over 2^lg points (SRS and window tables
             cached in ``ptau/``), K3 launches, peak device memory
   K4        with ``--quotient-k K,..`` (where the tree has
-            ``ops/cuda_quotient.py``; default 20): the quotient's
-            constraint terms of the benchmark cell's circuit (AES-128, 4
-            sets, upstream's layout) over random stacks of one sub-coset
-            at 2^K, K4 (one launch) against the eager fold, bit-exact, with
-            the bound of the work the constraint system asks; from
-            ``rest.HOST_REST_MIN_K`` on one row chunk of the host-rest
-            form (the second of ``_QUOTIENT_ROW_CHUNKS``) of a sub-coset
+            ``_Phases.quotient_subcoset_eager``; default 20): the
+            quotient's constraint terms of the benchmark cell's circuit
+            (AES-128, 4 sets, upstream's layout) over random stacks of one
+            sub-coset at 2^K, K4 (one launch) against the eager fold,
+            bit-exact, with the bound of the work the constraint system
+            asks; from ``rest.HOST_REST_MIN_K`` on, against the plain
+            version over a quarter of the rows
   K6        with ``--grand-k K,..`` (where the tree has
             ``ops/cuda_grand.py``): the benchmark cell's grand products at
             2^K rows (17 lookup columns, 14 permutation columns in 5
@@ -115,12 +115,16 @@ def random_stack(F, polys: int, n: int, gen, dev):
 
 
 def quotient_terms_times(dev, k: int) -> dict:
-    """K4 against the eager fold on the benchmark cell's circuit at 2^k
-    rows a sub-coset (random canonical stacks and challenges): a whole
-    sub-coset below ``rest.HOST_REST_MIN_K``, from it the second row
-    chunk of its host-rest form; bit-exact, CUDA-event times of both,
-    and the bound of the work the constraint system asks (each poly the
-    terms read and the result once; ``muls`` products a row)."""
+    """K4 on the benchmark cell's circuit at 2^k rows a sub-coset (random
+    canonical stacks and challenges), one launch a sub-coset as the
+    prover runs it, bit-exact against a reference: below
+    ``rest.HOST_REST_MIN_K`` the eager fold over the whole sub-coset;
+    from it, where the eager fold does not fit beside the stacks, K4 and
+    the plain version over rows [n/4, n/2) (a first row that is not 0),
+    and the whole launch's rows there.  CUDA-event times of K4 over the
+    sub-coset and of the reference, and the bound of the work the
+    constraint system asks (each poly the terms read and the result
+    once; ``muls`` products a row)."""
     import torch
 
     from halo2_aes_tpu_torch.backend import prover as PV
@@ -137,49 +141,46 @@ def quotient_terms_times(dev, k: int) -> dict:
     shift, zh_inv = PV._subcoset_tables(k, ph.ext_k, 1, dev)
     scal = [F.encode(F.FR, v, dev) for v in (0x1234567, 0x89ABCDEF, 0xFEDCBA9, 0x7654321)]
     args = (static, dyn, *scal, shift, zh_inv)
-    chunks = PV._QUOTIENT_ROW_CHUNKS[ph.host_rest()]
-    if chunks == 1:
-        lo, hi = 0, n
 
-        def fused():
-            return ph.quotient_subcoset_fused(*args)
-
-        def eager():
-            return ph.quotient_subcoset_sliced(*args)
-    else:
-        lo, hi = n // chunks, 2 * n // chunks
-        theta, beta, gamma, y = scal
-        table = CQ.constant_table(ph._terms_consts, y, zh_inv, theta, beta, gamma,
-                                  F.mont_mul(F.FR, ph._delta_pows, shift[1]))
-        omega = ph.dom.omega_powers(dev)
-        out = torch.empty((hi - lo, F.LIMBS), dtype=torch.int32, device=dev)
-
-        def fused():
-            return CQ.quotient_terms(ph._terms_code, ph.terms.slots, table,
-                                     static, dyn, omega, lo, out)
-
-        def eager():
-            terms = PV.PROTO.constraint_terms(ph.cs, ph._subcoset_ctx(
-                static, dyn, theta, beta, gamma, shift, (lo, hi)))
-            acc = ph._quotient_terms_slice(terms, ph.n_constraint_terms(), y)
-            return F.mont_mul(F.FR, acc, zh_inv)
+    def k4():
+        return ph.quotient_subcoset(*args)
 
     before = CQ.LAUNCHES
-    got = fused()
+    got = k4()
     launches = CQ.LAUNCHES - before
-    want = eager()
-    if not torch.equal(got, want):
+    if ph.host_rest():
+        lo, hi = n // 4, n // 2
+        theta, beta, gamma, y = scal
+        table = ph.terms_table(theta, beta, gamma, y, shift, zh_inv)
+        omega = ph.dom.omega_powers(dev)
+        part = CQ.quotient_terms(ph._terms_code, ph.terms.slots, table, static,
+                                 dyn, omega, lo,
+                                 torch.empty((hi - lo, F.LIMBS),
+                                             dtype=torch.int32, device=dev))
+
+        def reference():
+            return CQ.quotient_terms_plain(ph._terms_code, table, static, dyn,
+                                           omega, lo, hi - lo)
+    else:
+        lo, hi = 0, n
+        part = got
+
+        def reference():
+            return ph.quotient_subcoset_eager(*args)
+
+    want = reference()
+    if not (torch.equal(got[lo:hi], want) and torch.equal(part, want)):
         raise AssertionError(f"K4: rows [{lo}, {hi}) of a 2^{k} sub-coset "
-                             "differ from the eager fold")
-    del want
-    rows = hi - lo
+                             "differ from the reference")
+    del want, part, got
     t = ph.terms
-    by_bytes = (t.polys + 1) * rows * 64 / 3.35e12 * 1e3
-    by_ops = t.muls * rows * 136 / 16.75e12 * 1e3
-    rec = {"k": k, "rows": [lo, hi], "launches": launches, "bit_exact": True,
-           "instructions": int(t.code.shape[0]), "slots": t.slots,
-           "muls": t.muls, "polys": t.polys, "terms": t.terms,
-           "k4_ms": time_ms(fused, 3, 3), "eager_ms": time_ms(eager, 1, 3),
+    by_bytes = (t.polys + 1) * n * 64 / 3.35e12 * 1e3
+    by_ops = t.muls * n * 136 / 16.75e12 * 1e3
+    rec = {"k": k, "launches": launches, "checked_rows": [lo, hi],
+           "reference": "plain" if ph.host_rest() else "eager",
+           "bit_exact": True, "instructions": int(t.code.shape[0]),
+           "slots": t.slots, "muls": t.muls, "polys": t.polys, "terms": t.terms,
+           "k4_ms": time_ms(k4, 3, 3), "reference_ms": time_ms(reference, 1, 3),
            "bound_ms": max(by_bytes, by_ops),
            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
     rec["share_of_bound"] = rec["bound_ms"] / rec["k4_ms"]
@@ -374,9 +375,9 @@ def main() -> int:
 
     out = {"tree": os.path.relpath(os.path.abspath(args.tree), REPO),
            "card": card_line(), "lg": lg, "count": count}
-    if args.quotient_k and os.path.exists(os.path.join(
-            os.path.abspath(args.tree), "halo2_aes_tpu_torch", "ops",
-            "cuda_quotient.py")):
+    from halo2_aes_tpu_torch.backend import prover as PV
+
+    if args.quotient_k and hasattr(PV._Phases, "quotient_subcoset_eager"):
         out["quotient_terms"] = [quotient_terms_times(dev, int(k))
                                  for k in args.quotient_k.split(",")]
     if args.grand_k:

@@ -6,15 +6,14 @@ from it, one form at a time, on one device.
       [--rounds R] [--cache-dir DIR|none] [--out FILE]
 
 ``backend/prover.HOST_REST_FORMS`` names the forms that are a pair
-(below ``rest.HOST_REST_MIN_K``, from it): the quotient's row chunks and
-the polys per evaluation stack on the large path (k >= 19; below it
-their swap changes nothing and times the noise), the permuted lookup
-pairs one lookup at a time.  This script compiles the
+(below ``rest.HOST_REST_MIN_K``, from it): the polys per evaluation
+stack on the large path (k >= 19; below it its swap changes nothing and
+times the noise), the permuted lookup pairs one lookup at a time.  This script compiles the
 AES-128 circuit at K, sets up the SRS and keys, builds the witness and
 proves once (cold), then proves R rounds in turns: the default forms,
 then each form swapped for its other side alone (below k = 23: the
 k >= 23 form; from it: the smaller k's form), each with its seconds,
-peak device memory, K1-K3 launches and whether it ran out of device
+peak device memory, K1-K4 launches and whether it ran out of device
 memory, and its bytes against the default proof's (all seeds equal).
 From k = 23 it runs the CUDA allocator with expandable segments unless
 ``PYTORCH_CUDA_ALLOC_CONF`` is set.  Prints one JSON line; ``--out``
@@ -88,7 +87,7 @@ def main() -> int:
     from halo2_aes_tpu_torch.backend.keygen import keygen, keygen_cached
     from halo2_aes_tpu_torch.circuit import witness
     from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
-    from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_ntt
+    from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_ntt, cuda_quotient
     from halo2_aes_tpu_torch.ops.timing import resolve_device
 
     dev = resolve_device(args.device)
@@ -116,7 +115,7 @@ def main() -> int:
 
     def launches():
         return {"K1": cuda_field.LAUNCHES, "K2": cuda_ntt.LAUNCHES,
-                "K3": cuda_curve.LAUNCHES}
+                "K3": cuda_curve.LAUNCHES, "K4": cuda_quotient.LAUNCHES}
 
     def prove():
         if cuda:

@@ -2,7 +2,9 @@
 
 Each sliced function of ``backend/prover.py`` is held, on the same
 seeded inputs, against the JAX package's function of the same name and
-against the port's own unsliced form, bit for bit; ``lookup.grand_product``
+against the port's own unsliced form, bit for bit (the quotient's term
+program, the prover's route, against the reference's sliced fold and
+the port's eager fold); ``lookup.grand_product``
 against the reference's and against the rows of ``grand_product_many``;
 the tensors a quotient or lookup-product call reads are freed when it
 returns, without the cyclic collector; and with the switch lowered to K
@@ -10,8 +12,8 @@ every golden proof (toys, GWC, packed) comes out byte-identical through
 the sliced path and verifies.  So it does with the k >= 23 switch
 lowered (idle stacks resting in host memory, however the pk was made,
 and the k >= 23 forms of ``prover.HOST_REST_FORMS``) and with the NTT's
-row cap lowered (three and more passes a transform); the quotient fold
-over row chunks and the permuted pairs built one lookup at a time equal
+row cap lowered (three and more passes a transform); the term program
+launched over row chunks and the permuted pairs built one lookup at a time equal
 their whole forms; and prove takes every k the reference takes and
 refuses, before any work, the k whose extended domain the field cannot
 transform."""
@@ -38,6 +40,7 @@ from halo2_aes_tpu.ops import field as ref_field
 from halo2_aes_tpu.ops import pallas_ntt as ref_pallas_ntt
 from halo2_aes_tpu_torch.backend import convert, keygen, lookup, prover, rest, srs, verifier
 from halo2_aes_tpu_torch.circuit.toys import GOLDEN_PROOFS, K, TOYS
+from halo2_aes_tpu_torch.ops import cuda_quotient as CQ
 from halo2_aes_tpu_torch.ops import curve as CV
 from halo2_aes_tpu_torch.ops import field as F
 from halo2_aes_tpu_torch.ops import msm as MSM
@@ -120,6 +123,9 @@ def test_static_subcoset_evals_large_recomputes(phases, s, monkeypatch):
 
 @pytest.mark.parametrize("n_parts", [3, 4])
 def test_quotient_subcoset_sliced(phases, n_parts):
+    """The term program (the prover's route on every device) equals the
+    reference's fold in ``n_parts`` Horner partials and the port's eager
+    fold."""
     ph, ref = phases
     rng = np.random.default_rng(3)
     static = _rand(rng, len(ph.q_static_keys) * ph.n)
@@ -127,11 +133,10 @@ def test_quotient_subcoset_sliced(phases, n_parts):
     scal = [FR.encode(v) for v in (11, 13, 17, 19)]
     shift, zh_inv = _sub(ph, 1)
     args = (static, dyn, *scal, shift, zh_inv)
-    sliced = ph.quotient_subcoset_sliced(*map(_t, args), n_parts=n_parts)
     ref_sliced = ref.quotient_subcoset_sliced(*map(jnp.asarray, args),
                                               n_parts=n_parts)
-    whole = ph.quotient_subcoset(*map(_t, args))
-    assert _same(sliced, ref_sliced, whole)
+    assert _same(ph.quotient_subcoset(*map(_t, args)), ref_sliced,
+                 ph.quotient_subcoset_eager(*map(_t, args)))
 
 
 def test_quotient_finish_large(phases):
@@ -195,15 +200,17 @@ def test_shplonk_l_large_and_ipa_l(phases):
 
 
 def test_n_constraint_terms(phases):
+    """The term program's term count equals the reference's and a walk of
+    the terms."""
     ph, ref = phases
-    assert ph.n_constraint_terms() == ref.n_constraint_terms()
+    assert ph.terms.terms == ref.n_constraint_terms()
     ctx = ph._subcoset_ctx(*(_t(a) for a in (
         _rand(np.random.default_rng(1), len(ph.q_static_keys) * ph.n),
         _rand(np.random.default_rng(2), len(ph.q_dyn_keys) * ph.n))),
         *(_t(FR.encode(v)) for v in (2, 3, 5)),
         _t(_sub(ph, 0)[0]))
     assert sum(1 for _ in prover.PROTO.constraint_terms(ph.cs, ctx)) == \
-        ph.n_constraint_terms()
+        ph.terms.terms
 
 
 def test_grand_product():
@@ -227,8 +234,7 @@ def test_grand_product():
         assert _same(one, ref, many[rows])
 
 
-@pytest.mark.parametrize("fn", ["quotient_subcoset", "quotient_subcoset_sliced",
-                                "quotient_subcoset_fused"])
+@pytest.mark.parametrize("fn", ["quotient_subcoset", "quotient_subcoset_eager"])
 def test_subcoset_stacks_freed_on_return(phases, fn):
     """A sub-coset's evaluation stacks are freed as soon as the quotient
     call returns, with Python's cyclic collector off: the protocol
@@ -391,11 +397,12 @@ def test_host_rest_prove_equals_golden(name, srs_pair, monkeypatch):
     assert prover.prove(pk, values, seed=seed, **opts).hex() == GOLDEN[name]["proof"]
 
 
-@pytest.mark.parametrize("chunks", [1, 2, 3])
-def test_quotient_row_chunks(phases, chunks, monkeypatch):
-    """The quotient fold over row chunks (rotations reading across a
-    chunk's edge and wrapping past the last row) equals the whole-coset
-    fold and the reference's."""
+@pytest.mark.parametrize("chunks", [1, 2, 3, 5])
+def test_quotient_row_chunks(phases, chunks):
+    """The term program launched once a row chunk (rotations reading
+    across a chunk's edge and wrapping past the last row; 5 chunks are
+    ragged, 12 and 13 rows) equals the whole-coset launch and the
+    reference's fold."""
     ph, ref = phases
     rng = np.random.default_rng(31)
     static = _rand(rng, len(ph.q_static_keys) * ph.n)
@@ -403,10 +410,16 @@ def test_quotient_row_chunks(phases, chunks, monkeypatch):
     scal = [FR.encode(v) for v in (11, 13, 17, 19)]
     shift, zh_inv = _sub(ph, 2)
     args = (static, dyn, *scal, shift, zh_inv)
-    whole = ph.quotient_subcoset(*map(_t, args))
-    monkeypatch.setattr(prover, "_QUOTIENT_ROW_CHUNKS", (chunks, chunks))
-    chunked = ph.quotient_subcoset_sliced(*map(_t, args))
-    assert _same(chunked, whole, ref.quotient_subcoset_sliced(*map(jnp.asarray, args)))
+    static_t, dyn_t, theta, beta, gamma, y, shift_t, zh_inv_t = map(_t, args)
+    table = ph.terms_table(theta, beta, gamma, y, shift_t, zh_inv_t)
+    omega = ph.dom.omega_powers("cpu")
+    chunked = torch.empty((ph.n, F.LIMBS), dtype=torch.int32)
+    for c in range(chunks):
+        lo, hi = c * ph.n // chunks, (c + 1) * ph.n // chunks
+        CQ.quotient_terms(ph._terms_code, ph.terms.slots, table, static_t, dyn_t,
+                          omega, lo, chunked[lo:hi])
+    assert _same(chunked, ph.quotient_subcoset(*map(_t, args)),
+                 ref.quotient_subcoset_sliced(*map(jnp.asarray, args)))
 
 
 def test_permuted_pairs_streamed(phases, monkeypatch):

@@ -2,12 +2,12 @@
 
 The constraint terms lowered to one program a proving key, run by K4's
 plain version (``ops/cuda_quotient.quotient_terms_plain``, what the
-kernel runs on the card), equal ``quotient_subcoset`` and
-``quotient_subcoset_sliced`` (row chunks forced) bit for bit on every
-golden K=6 circuit, the k=11 mini-AES circuit and a toy with four
-permutation chunks; rotations -1, +1 and ``usable`` wrap at rows 0 and
-n - 1; the program's product count is a counting walk of
-``constraint_terms``; and the prover keeps the eager fold on the CPU.
+kernel runs on the card), equal ``quotient_subcoset_eager`` bit for bit
+on every golden K=6 circuit, the k=11 mini-AES circuit and a toy with
+four permutation chunks, over a whole sub-coset and over row ranges
+that do not start at row 0; rotations -1, +1 and ``usable`` wrap at
+rows 0 and n - 1; the program's product count is a counting walk of
+``constraint_terms``; and the CPU prove runs the program.
 """
 
 import types
@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from halo2_aes_tpu_torch.backend import keygen, prover, srs
+from halo2_aes_tpu_torch.backend import keygen, prover, rest, srs
 from halo2_aes_tpu_torch.backend import protocol as PROTO
 from halo2_aes_tpu_torch.circuit import ir
 from halo2_aes_tpu_torch.circuit.toys import K, MINI_CONFIG, TOYS
@@ -99,20 +99,24 @@ def _equal(*tensors):
 def test_program_equals_eager_fold(phases):
     ph = phases
     args = _inputs(ph, 1, seed=ph.n + len(ph.q_dyn_keys))
-    assert _equal(ph.quotient_subcoset_fused(*args), ph.quotient_subcoset(*args),
-                  ph.quotient_subcoset_sliced(*args))
+    assert _equal(ph.quotient_subcoset(*args), ph.quotient_subcoset_eager(*args))
 
 
 @pytest.mark.parametrize("chunks", [2, 3])
-def test_program_row_chunks_equal_eager_fold(phases, chunks, monkeypatch):
-    """With the row-chunk form forced, K4's launch per chunk (rows from a
-    first row that is not 0) equals the sliced fold and the whole one."""
+def test_program_row_chunks_equal_eager_fold(phases, chunks):
+    """K4's plain version launched once a row chunk (rows from a first
+    row that is not 0) equals the eager fold over the whole sub-coset."""
     ph = phases
-    args = _inputs(ph, ph.ratio - 1, seed=7)
-    whole = ph.quotient_subcoset(*args)
-    monkeypatch.setattr(prover, "_QUOTIENT_ROW_CHUNKS", (chunks, chunks))
-    assert _equal(ph.quotient_subcoset_fused(*args), whole,
-                  ph.quotient_subcoset_sliced(*args))
+    static, dyn, theta, beta, gamma, y, shift, zh_inv = args = _inputs(
+        ph, ph.ratio - 1, seed=7)
+    table = ph.terms_table(theta, beta, gamma, y, shift, zh_inv)
+    omega = ph.dom.omega_powers("cpu")
+    out = torch.empty((ph.n, F.LIMBS), dtype=torch.int32)
+    for c in range(chunks):
+        lo, hi = c * ph.n // chunks, (c + 1) * ph.n // chunks
+        CQ.quotient_terms(ph._terms_code, ph.terms.slots, table, static, dyn,
+                          omega, lo, out[lo:hi])
+    assert _equal(out, ph.quotient_subcoset_eager(*args))
 
 
 def test_rotations_wrap_at_the_ends(phases):
@@ -120,9 +124,9 @@ def test_rotations_wrap_at_the_ends(phases):
     neighbours across the ends: equal to the eager fold's rows."""
     ph = phases
     static, dyn, theta, beta, gamma, y, shift, zh_inv = _inputs(ph, 0, seed=11)
-    whole = ph.quotient_subcoset(static, dyn, theta, beta, gamma, y, shift, zh_inv)
-    table = CQ.constant_table(ph._terms_consts, y, zh_inv, theta, beta, gamma,
-                              F.mont_mul(FR, ph._delta_pows, shift[1]))
+    whole = ph.quotient_subcoset_eager(static, dyn, theta, beta, gamma, y, shift,
+                                       zh_inv)
+    table = ph.terms_table(theta, beta, gamma, y, shift, zh_inv)
     omega = ph.dom.omega_powers("cpu")
     for row in (0, ph.n - 1):
         got = CQ.quotient_terms_plain(ph._terms_code, table, static, dyn, omega,
@@ -167,7 +171,7 @@ def test_muls_count_the_terms_as_stated(phases):
         perm_id=lambda i: 0, lookup_z=lambda i, r: 0, lookup_a=lambda i, r: 0,
         lookup_s=lambda i: 0)
     terms = sum(1 for _ in PROTO.constraint_terms(ph.cs, ctx))
-    assert ph.terms.terms == terms == ph.n_constraint_terms()
+    assert ph.terms.terms == terms
     # each term past the first: one Horner product; then the Z_H division
     assert ph.terms.muls == alg.muls + terms - 1 + 1
     loads = ph.terms.code[ph.terms.code[:, 0] == CQ.LOAD]
@@ -201,19 +205,34 @@ def test_aes_cell_program():
     assert ph.terms.slots <= 8
 
 
-def test_cpu_prove_keeps_the_eager_fold(kzg_srs, monkeypatch):
-    """On the CPU the prover folds the terms eagerly (K4's plain version
-    never runs) and its quotient.terms spans say so, with the work the
-    constraint system asks."""
+@pytest.mark.parametrize("host_rest", [False, True])
+def test_cpu_prove_runs_the_term_program(kzg_srs, monkeypatch, host_rest):
+    """On the CPU the prover runs the term program through K4's plain
+    version, once a whole sub-coset, and never the eager fold; its
+    quotient.terms spans say fused 0, with the work the constraint
+    system asks.  So it does with the k >= 19 and k >= 23 switches
+    lowered to K (the sliced path with host rest), where the term
+    program runs in no row chunks."""
+    if host_rest:
+        monkeypatch.setattr(rest, "HOST_REST_MIN_K", K)
+        monkeypatch.setattr(prover, "_LARGE_MIN_K", K)
     build, seed, _ = TOYS["toy"]
     layout, values = build()
     pk = keygen.keygen(layout, kzg_srs)
     ph = prover._get_phases(pk)
+    assert (ph.host_rest(), ph.large()) == (host_rest, host_rest)
+    plain = CQ.quotient_terms_plain
+    launches = []
+
+    def counted(code, table, static, dyn, omega, row0, rows):
+        launches.append((row0, rows))
+        return plain(code, table, static, dyn, omega, row0, rows)
 
     def refuse(*args, **kwargs):
-        raise AssertionError("K4's plain version ran on the CPU prove path")
+        raise AssertionError("the eager fold ran on the CPU prove path")
 
-    monkeypatch.setattr(CQ, "quotient_terms_plain", refuse)
+    monkeypatch.setattr(CQ, "quotient_terms_plain", counted)
+    monkeypatch.setattr(prover._Phases, "quotient_subcoset_eager", refuse)
     timers.clear()
     try:
         with timers.recording():
@@ -221,6 +240,7 @@ def test_cpu_prove_keeps_the_eager_fold(kzg_srs, monkeypatch):
         spans = [r for r in timers.spans() if r.name == "quotient.terms"]
     finally:
         timers.clear()
+    assert launches == [(0, ph.n)] * ph.ratio
     assert len(spans) == ph.ratio
     for r in spans:
         assert r.attrs == {"terms": ph.terms.terms, "fused": 0,

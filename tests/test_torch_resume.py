@@ -45,7 +45,7 @@ def toy():
 PHASE_FNS = {"advice": ["advice_phase"], "lookup": ["lookup_phase"],
              "products": ["perm_products", "lookup_products_all",
                           "lookup_products_streamed"],
-             "quotient": ["quotient_subcoset", "quotient_subcoset_sliced"]}
+             "quotient": ["quotient_subcoset"]}
 
 
 @pytest.mark.parametrize("crash_after", resume.PHASES)
