@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch port on one CUDA card.
 
   python3 chip_smoke.py [golden,mock,ipa,mini,srs_format,mesh,mxu,large_forced,large_k23,
-                         quotient_terms,grand_products]
+                         quotient_terms,grand_products,msm_buckets]
 
 With no argument every phase runs; with a comma-separated list only the
 device and build phases and the named ones do, and no ok line is printed.
@@ -113,6 +113,20 @@ Phases, each printing one JSON line as it ends:
                 and each launch's device time; and SHPLONK, GWC and IPA
                 proofs of the flagship with K6 equal those with the eager
                 grand products, K6 launched three times a column
+    msm_buckets K7 (the MSM as bucket sums, one set a commitment over its
+                pre-scaled windows) against its plain version at small
+                shapes, bit-exact at each step (digits, the sort's lists,
+                the buckets, the weighted sums; with and without tables,
+                every digit equal), then 8 commitments of 2^20 points
+                (the main path's shape and the card's slice length)
+                against the plain version, bit-exact at each step, and
+                against the sorted-prefix tree (affine sums equal,
+                CUDA-event times, peaks, the bound, each K7 kernel's
+                device time; the sort against the plain sort); the
+                flagship's and the k=20 SHPLONK, GWC and IPA proofs with
+                K7 equal those with the tree, verify, launch K7 and never
+                the tree; a tableless MSM of 2^23 points (one set a
+                window, the Horner doublings) equals the tree's
     large_k23   the same circuit at k=23, 24,671 blocks (full
                 capacity), nothing cached on disk: setup, keygen,
                 witness, prove, verify, a flipped byte rejected; each
@@ -836,33 +850,42 @@ def phase_golden(dev):
 
 K3_ENTRIES = {"K3_add": "add", "K3_fold": "fold", "K3_masked": "masked_add",
               "K3_double": "double_n"}
-PATH_KERNELS = ("K1", "K2", "K3", "K4", "K6", *K3_ENTRIES)
+# every prove with window tables commits through K7 alone: K3 runs in the
+# SRS's setup, the tables' build, a mesh's reduction across ranks and the
+# tableless Horner tail, so the paths that have those require it too
+PATH_KERNELS = ("K1", "K2", "K4", "K6", "K7")
+TABLELESS_KERNELS = (*PATH_KERNELS, "K3")
 PROBE_KERNELS = {"P1": "mul_probe", "P2a": "mont_mul_planes16",
                  "P2b": "mont_mul_planes13"}
 K5_ENTRIES = {"K5_product": "product", "K5_normalize": "normalize"}
 
 
 def reset_counts():
-    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_grand, cuda_nibble,
-                                         cuda_ntt, cuda_probe, cuda_quotient)
+    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_grand, cuda_msm,
+                                         cuda_nibble, cuda_ntt, cuda_probe,
+                                         cuda_quotient)
 
     for mod in (cuda_field, cuda_ntt, cuda_curve, cuda_quotient, cuda_nibble,
-                cuda_grand):
+                cuda_grand, cuda_msm):
         mod.LAUNCHES = 0
     for entry in cuda_curve.ENTRY_LAUNCHES:
         cuda_curve.ENTRY_LAUNCHES[entry] = 0
+    for entry in cuda_msm.ENTRY_LAUNCHES:
+        cuda_msm.ENTRY_LAUNCHES[entry] = 0
     for entry in cuda_nibble.ENTRY_LAUNCHES:
         cuda_nibble.ENTRY_LAUNCHES[entry] = 0
     cuda_probe.reset_counts()
 
 
 def read_counts() -> dict:
-    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_grand, cuda_nibble,
-                                         cuda_ntt, cuda_probe, cuda_quotient)
+    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_grand, cuda_msm,
+                                         cuda_nibble, cuda_ntt, cuda_probe,
+                                         cuda_quotient)
 
     out = {"K1": cuda_field.LAUNCHES, "K2": cuda_ntt.LAUNCHES,
            "K3": cuda_curve.LAUNCHES, "K4": cuda_quotient.LAUNCHES,
-           "K5": cuda_nibble.LAUNCHES, "K6": cuda_grand.LAUNCHES}
+           "K5": cuda_nibble.LAUNCHES, "K6": cuda_grand.LAUNCHES,
+           "K7": cuda_msm.LAUNCHES}
     out.update({key: cuda_curve.ENTRY_LAUNCHES[name]
                 for key, name in K3_ENTRIES.items()})
     out.update({key: cuda_probe.LAUNCHES[name]
@@ -1065,6 +1088,158 @@ def grand_products_kernels(dev) -> dict:
     permutation chunks over 14 columns) against its plain version and the
     eager path, bit-exact, with CUDA-event times and the bound."""
     rec = _script("torch_kernel_times").grand_products_times(dev, 20)
+    free()
+    return rec
+
+
+@contextlib.contextmanager
+def tree_msm():
+    """The MSM by the sorted-prefix tree (``msm.msm_tree``,
+    ``msm_many_tree``) in place of K7."""
+    from halo2_aes_tpu_torch.ops import msm as MSM
+
+    saved = MSM.msm, MSM.msm_many
+    MSM.msm, MSM.msm_many = MSM.msm_tree, MSM.msm_many_tree
+    try:
+        yield
+    finally:
+        MSM.msm, MSM.msm_many = saved
+
+
+@contextlib.contextmanager
+def no_tree():
+    """The tree's window sums made to raise: a prove must not reach them."""
+    from halo2_aes_tpu_torch.ops import msm as MSM
+
+    saved = MSM._window_sums
+
+    def refuse(*a, **k):
+        raise AssertionError("msm_buckets: a prove ran the sorted-prefix tree")
+
+    MSM._window_sums = refuse
+    try:
+        yield
+    finally:
+        MSM._window_sums = saved
+
+
+def msm_buckets_proofs(pk, values, dev, key: str, cfg: dict) -> dict:
+    """SHPLONK and GWC proofs on ``pk`` (of the circuit ``cfg``) and an
+    IPA proof of the same circuit with K7 equal those with the
+    sorted-prefix tree, byte for byte, verify, and launch K7 and never
+    the tree."""
+    from halo2_aes_tpu_torch.backend import ipa as IPA
+    from halo2_aes_tpu_torch.backend import keygen as KG
+    from halo2_aes_tpu_torch.backend import prover as PV
+    from halo2_aes_tpu_torch.backend import verifier as VF
+    from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
+
+    cache = os.path.join(REPO, "ptau")
+    basis = None
+
+    def keys():
+        """The KZG pk's proofs, then the IPA pk, made only when needed."""
+        nonlocal basis
+        yield "shplonk", pk
+        yield "gwc", pk
+        basis = IPA.setup(cfg["k"], dev, cache_dir=cache)
+        yield "ipa", KG.keygen_cached(compile_circuit(AesConfig(**cfg)), basis,
+                                      cache_dir=cache)
+
+    out = {}
+    for multiopen, k in keys():
+        reset_counts()
+        with no_tree():
+            proof = PV.prove(k, values, seed=5, multiopen=multiopen)
+        counts = read_counts()
+        require_launched(f"msm_buckets {key} {multiopen}", counts, PATH_KERNELS)
+        with tree_msm():
+            tree = PV.prove(k, values, seed=5, multiopen=multiopen)
+        if proof != tree:
+            raise AssertionError(f"msm_buckets: the {key} {multiopen} proof with K7 "
+                                 "differs from the tree's")
+        if multiopen == "ipa":
+            IPA.verify(k.vk, proof, srs=basis)
+        else:
+            VF.verify(k.vk, proof, multiopen=multiopen)
+        out[multiopen] = {"proof_bytes": len(proof), "k7_launches": counts["K7"],
+                          "k3_launches": counts["K3"], "equals_tree": True,
+                          "verified": True}
+        del k, proof, tree
+    return out
+
+
+def msm_buckets_k20(dev) -> dict:
+    """The upstream prover binary's shape (k=20, 4 sets, 3,082 blocks; keys
+    cached in ptau/): SHPLONK, GWC and IPA proofs with K7 equal the
+    tree's."""
+    import numpy as np
+    import torch
+
+    from halo2_aes_tpu_torch.backend import keygen as KG
+    from halo2_aes_tpu_torch.backend import srs as SRS
+    from halo2_aes_tpu_torch.circuit import witness
+    from halo2_aes_tpu_torch.models.aes128 import AesConfig, compile_circuit
+
+    cache = os.path.join(REPO, "ptau")
+    layout = compile_circuit(AesConfig(**LARGE))
+    pk = KG.keygen_cached(layout, SRS.setup(LARGE["k"], dev, cache_dir=cache),
+                          cache_dir=cache)
+    rng = np.random.default_rng(3)
+    key = torch.as_tensor(rng.integers(0, 256, 16, dtype=np.uint8), device=dev)
+    pts = torch.as_tensor(rng.integers(0, 256, (LARGE["n_blocks"], 16),
+                                       dtype=np.uint8), device=dev)
+    values = witness.assemble_values(layout, witness.build_pool(key, pts))
+    return msm_buckets_proofs(pk, values, dev, "k20", LARGE)
+
+
+def msm_buckets_tableless(dev, lg: int = 23) -> dict:
+    """A tableless MSM (the k >= 22 commitments: one set a window and the
+    Horner doublings) of 2^lg points, the 2^20 SRS points repeated, with
+    K7 equal to the tree's."""
+    import torch
+
+    from halo2_aes_tpu_torch.backend import srs as SRS
+    from halo2_aes_tpu_torch.ops import curve as CV
+    from halo2_aes_tpu_torch.ops import field as F
+    from halo2_aes_tpu_torch.ops import msm as MSM
+    from halo2_aes_tpu_torch.ops.timing import time_ms
+
+    srs = SRS.setup(20, dev, cache_dir=os.path.join(REPO, "ptau"))
+    reps = 1 << (lg - 20)
+    pts = (srs.g1_x.repeat(reps, 1), srs.g1_y.repeat(reps, 1))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(lg)
+    scal = torch.randint(0, 1 << 16, (1 << lg, F.LIMBS), generator=gen,
+                         device=dev, dtype=torch.int32)
+    scal[:, -1] %= int(F.FR.p_limbs[-1])
+    reset_counts()
+    got = CV.to_affine_host(MSM.msm(pts, scal))
+    k7 = read_counts()["K7"]
+    if got != CV.to_affine_host(MSM.msm_tree(pts, scal)):
+        raise AssertionError(f"msm_buckets: a tableless MSM of 2^{lg} points "
+                             "differs from the tree's")
+    rec = {"lg": lg, "window": MSM.default_window(1 << lg), "k7_launches": k7,
+           "equals_tree": True, "k7_ms": time_ms(lambda: MSM.msm(pts, scal), 1, 3),
+           "tree_ms": time_ms(lambda: MSM.msm_tree(pts, scal), 1, 3)}
+    del pts, scal
+    return rec
+
+
+def msm_buckets_kernels(dev) -> dict:
+    """K7 against its plain version (bit for bit, small shapes and the
+    cell's shape: 8 commitments of 2^20 points) and at the cell's shape
+    against the tree, timed beside its bound; the k=20 SHPLONK, GWC and
+    IPA proofs with K7 equal the tree's; a tableless 2^23-point MSM
+    equals the tree's."""
+    kt = _script("torch_kernel_times")
+    rec = {"check": kt.msm_buckets_check(dev)}
+    free()
+    rec["times"] = kt.msm_buckets_times(dev, 20, 8)
+    free()
+    rec["k20_proofs"] = msm_buckets_k20(dev)
+    free()
+    rec["tableless"] = msm_buckets_tableless(dev)
     free()
     return rec
 
@@ -1605,10 +1780,12 @@ def large_forced(pk, values) -> dict:
     MSM.TABLELESS_MIN_N = srs.n
     object.__setattr__(srs, "_msm_tables", None)
     try:
+        reset_counts()
         t0 = time.perf_counter()
         tableless = PV.prove(pk, values, seed=5)
         torch.cuda.synchronize()
         tableless_s = time.perf_counter() - t0
+        tableless_counts = read_counts()
         if srs._msm_tables is not None:
             raise AssertionError("large: the SRS built tables below the switch")
     finally:
@@ -1616,6 +1793,7 @@ def large_forced(pk, values) -> dict:
         object.__setattr__(srs, "_msm_tables", tables)
     if tableless != ordinary:
         raise AssertionError("large: the k=17 proof without window tables differs")
+    require_launched("large_forced tableless", tableless_counts, TABLELESS_KERNELS)
     # and the k=23 switch with three-pass transforms
     # (the pk re-made so that its own stacks rest in host memory too); then
     # a checkpointed prove of the same, crashed after its last phase was
@@ -1649,6 +1827,7 @@ def large_forced(pk, values) -> dict:
         raise AssertionError("large: the forced host-rest prove parked nothing")
     return {"k": pk.vk.k, "identical": True, "sliced_prove_s": sliced_s,
             "tableless_identical": True, "tableless_prove_s": tableless_s,
+            "tableless_launches": {k: tableless_counts[k] for k in TABLELESS_KERNELS},
             "host_rest_row_cap6_identical": True,
             "host_rest_row_cap6_prove_s": rested_s,
             "host_rest_pinned_peak_bytes": rest.PINNED["peak_bytes"],
@@ -1770,7 +1949,8 @@ def large_prove(dev, cfg: dict, cache: str | None) -> dict:
     if not rejects_flipped_byte(lambda p: VF.verify(pk.vk, p), proof):
         raise AssertionError(f"large: a k={cfg['k']} proof with a flipped "
                              "byte verified")
-    require_launched("large", counts, PATH_KERNELS)
+    kernels = PATH_KERNELS if srs._msm_tables is not None else TABLELESS_KERNELS
+    require_launched("large", counts, kernels)
     peak = max(peaks[f"{name}_peak_bytes"] for name in ("setup", "keygen", "prove"))
     with open("/proc/meminfo") as f:
         meminfo = {ln.split(":")[0]: int(ln.split()[1]) * 1024 for ln in f}
@@ -1788,7 +1968,7 @@ def large_prove(dev, cfg: dict, cache: str | None) -> dict:
             "setup_keygen_prove_peak_bytes": peak,
             "held_before_prove_bytes": held,
             "window_tables": srs._msm_tables is not None,
-            "launches": {k: counts[k] for k in PATH_KERNELS}}
+            "launches": {k: counts[k] for k in kernels}}
 
 
 def large_k20(dev) -> dict:
@@ -2137,8 +2317,9 @@ def kernels_record(rec: dict, counts: dict, ipa_counts: dict,
     ``torch._int_mm`` (cuBLASLt int8) on the same products, without the
     fold; null for K5's normalize entry (no PyTorch call carries limbs),
     whose row sums the ``mxu`` phase's four carry sites."""
-    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_grand, cuda_nibble,
-                                         cuda_ntt, cuda_probe, cuda_quotient)
+    from halo2_aes_tpu_torch.ops import (cuda_curve, cuda_field, cuda_grand, cuda_msm,
+                                         cuda_nibble, cuda_ntt, cuda_probe,
+                                         cuda_quotient)
 
     k3 = (cuda_curve.SOURCE, cuda_curve.REPLACES)
     rows = [("K1", "K1", "mont_mul", cuda_field.SOURCE, cuda_field.REPLACES),
@@ -2156,6 +2337,7 @@ def kernels_record(rec: dict, counts: dict, ipa_counts: dict,
                  cuda_quotient.REPLACES))
     rows.append(("K6", "K6", "grand_product", cuda_grand.SOURCE,
                  cuda_grand.REPLACES))
+    rows.append(("K7", "K7", "msm_buckets", cuda_msm.SOURCE, cuda_msm.REPLACES))
     rows.append(("K5", "K5_product", "nibble_product", cuda_nibble.SOURCE,
                  cuda_nibble.REPLACES))
     rows.append(("K5_normalize", "K5_normalize", "nibble_normalize",
@@ -2200,10 +2382,18 @@ def main(only: str = "") -> int:
     if only:
         # development aid: some of the later phases alone (no ok line)
         for name in only.split(","):
-            if name in ("mesh", "large_forced", "quotient_terms", "grand_products"):
+            if name in ("mesh", "large_forced", "quotient_terms", "grand_products",
+                        "msm_buckets"):
                 _, pk, values, _ = phase_flagship(dev)
                 if name == "mesh":
                     phase_mesh(pk, values, dev)
+                elif name == "msm_buckets":
+                    proofs = msm_buckets_proofs(pk, values, dev, "flagship", FLAGSHIP)
+                    del pk, values
+                    free()
+                    emit({"phase": "msm_buckets", "flagship_proofs": proofs,
+                          **msm_buckets_kernels(dev)})
+                    continue
                 elif name == "quotient_terms":
                     proofs = quotient_terms_proofs(pk, values, dev)
                     del pk, values
@@ -2243,6 +2433,7 @@ def main(only: str = "") -> int:
     phase_gwc_packed(pk, values)
     q_proofs = quotient_terms_proofs(pk, values, dev)
     g_proofs = grand_products_proofs(pk, values, dev)
+    m_proofs = msm_buckets_proofs(pk, values, dev, "flagship", FLAGSHIP)
     free()
     mesh_counts = phase_mesh(pk, values, dev)
     srs = pk.srs
@@ -2271,6 +2462,14 @@ def main(only: str = "") -> int:
                  "plain_ms": g_kernels["plain_perm_ms"]
                  + g_kernels["lookups"] * g_kernels["plain_lookup_ms"],
                  "bound_ms": g_kernels["bound_all_ms"], "bound_by": "bytes"}
+    m_kernels = msm_buckets_kernels(dev)
+    emit({"phase": "msm_buckets", "flagship_proofs": m_proofs, **m_kernels})
+    k7 = m_kernels["times"]
+    rec["K7"] = {"errors": {"small_shapes": 0,
+                            "k20": sum(k7["plain"]["errors"].values())},
+                 "shape": f"{k7['polys']} commitments of 2^{k7['lg']} points",
+                 "ms": k7["k7_ms"], "plain_ms": k7["plain"]["plain_ms"],
+                 "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"]}
     phase_mock(dev)
     free()
     ipa_counts = phase_ipa(dev)

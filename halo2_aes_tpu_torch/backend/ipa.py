@@ -11,7 +11,7 @@ bulletproofs-style PCS from the halo2 paper).
 
 What is shared with the KZG pipeline (by design, not by accident):
   * commitments are Pedersen vector commitments C = MSM(G, coeffs) —
-    the same window-table MSM (ops/msm.py, the K3 kernels) over a
+    the same window-table MSM (ops/msm.py, the K7 kernels) over a
     hash-derived basis instead of tau powers,
   * ALL PLONK phases (advice, lookup, permutation, quotient, evals) and
     the SHPLONK reduction are PCS-agnostic polynomial algebra: they

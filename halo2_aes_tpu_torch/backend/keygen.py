@@ -89,15 +89,21 @@ class ProvingKey:
         return self.srs.device
 
 
+# Toy domains up to this many points commit on the host (python bigints,
+# as the reference's keygen does); tests lower it to run the device MSM
+HOST_MSM_MAX_N = 512
+
+
 def commit_affine(srs: SRS, coeffs, mesh=None):
     """Commit one coefficient poly -> affine point (plain ints) or None.
 
-    Toy domains (n <= 512) fold on the host with python bigints, as the
-    reference's keygen does; the affine result is the same point the
-    device MSM gives.  With a ``mesh`` (parallel/comm.py) the sharded MSM
-    commits at every n, as the reference's mesh prover does.  Each call
-    of this and of ``commit_many`` is one ``commit`` span
-    (utils/timers.py): its polys, and the SRS points an MSM takes."""
+    Toy domains (``HOST_MSM_MAX_N``) fold on the host with python
+    bigints, as the reference's keygen does; the affine result is the
+    same point the device MSM gives.  With a ``mesh`` (parallel/comm.py)
+    the sharded MSM commits at every n, as the reference's mesh prover
+    does.  Each call of this and of ``commit_many`` is one ``commit``
+    span (utils/timers.py): its polys, and the SRS points an MSM
+    takes."""
     with timers.span("commit", polys=1, points=srs.n):
         return _commit_one(srs, coeffs, mesh)
 
@@ -105,7 +111,7 @@ def commit_affine(srs: SRS, coeffs, mesh=None):
 def _commit_one(srs: SRS, coeffs, mesh=None):
     if mesh is not None:
         return PMSM.commit(mesh, srs, coeffs)
-    if srs.n <= 512:
+    if srs.n <= HOST_MSM_MAX_N:
         g1 = _srs_host_points(srs)
         scalars = FR.decode(coeffs)
         return CV.host_msm(g1[:len(scalars)], scalars)
@@ -118,9 +124,9 @@ COMMIT_BATCH = 8
 def commit_many(srs: SRS, polys, mesh=None) -> list:
     """Commit a list of coefficient polys (each (m <= n, 16)) -> affine
     points in order.  Above the toy size they go through ``msm_many``
-    up to COMMIT_BATCH at a time, so each tree level of the MSM is one
-    batched point add for the whole group.  With a ``mesh``, every group
-    is one sharded ``msm_many`` and one all-gather, at every n."""
+    up to COMMIT_BATCH at a time: one K7 pass, one bucket set a poly.
+    With a ``mesh``, every group is one sharded ``msm_many`` and one
+    all-gather, at every n."""
     with timers.span("commit", polys=len(polys), points=srs.n):
         return _commit_many(srs, polys, mesh)
 
@@ -128,7 +134,7 @@ def commit_many(srs: SRS, polys, mesh=None) -> list:
 def _commit_many(srs: SRS, polys, mesh):
     if mesh is not None:
         return PMSM.commit_many(mesh, srs, polys, COMMIT_BATCH)
-    if srs.n <= 512 or len(polys) < 2:
+    if srs.n <= HOST_MSM_MAX_N or len(polys) < 2:
         return [_commit_one(srs, p) for p in polys]
     srs.warm_tables()
     # without window tables (MSM.TABLELESS_MIN_N) a batch saves nothing:

@@ -76,6 +76,21 @@ SIGNATURES = {
     # [8] (host), R^3 mod p [8] (host), stream
     "grand_product_launch": [ctypes.c_int] + [_P] * 9 + [_I] * 4
                             + [ctypes.c_int, _P, _P, _P, _U, _P, _P, _P],
+    # digits (uint16), scalars, count*n, n, c, windows, stream
+    "msm_digits_launch": [_P, _P, _I, _I, ctypes.c_int, ctypes.c_int, _P],
+    # rows, starts, list1, scratch, digits, sets, rows a set, c, low bits,
+    # pass-1 tiles, rows a tile, pass-2 tiles, places a tile, stream
+    "msm_sort_launch": [_P] * 5 + [_I, _I] + [ctypes.c_int] * 3
+                       + [_I, ctypes.c_int, _I, _P],
+    # buckets x, y, z, first pieces x, y, z, last pieces x, y, z, rows,
+    # starts, buckets, points x, points y, row stride, slice, threads, one
+    # (16 limbs), p[8] (host), n0inv, stream
+    "msm_accumulate_launch": [_P] * 11 + [_I, _P, _P, _I, _I, _I, _P, _P, _U, _P],
+    # out: the accumulation threads the current card holds at once
+    "msm_accumulate_threads": [_P],
+    # out x, y, z, buckets x, y, z, one (16 limbs), sets, c, log2 of the
+    # segments on both levels, p[8] (host), n0inv, stream
+    "msm_reduce_launch": [_P] * 7 + [_I] + [ctypes.c_int] * 3 + [_P, _U, _P],
 }
 
 

@@ -14,7 +14,10 @@ formula in registers.  What bounds them on an H100: ~1,540 32-bit
 multiply-adds per addition against 576 bytes of int32-limb traffic, so
 the integer multiplier binds (about 2:1 over memory).  The MSM's cost
 was never the adder but what its first interface forced around it, so
-the entries are the shapes ``ops/msm.py`` needs, each one launch:
+the entries are the shapes ``ops/msm.py``'s sorted-prefix tree needs
+(``msm_tree``, the tests' reference; the prover's MSM is K7,
+``ops/cuda_msm.py``, which shares K3's point arithmetic through
+``csrc/curve.cuh``), each one launch:
 
   ``add``         operands read in place by (rows, inner, outer) strides:
                   a slice of a level, a broadcast point or identity is

@@ -1,15 +1,22 @@
 """Multi-scalar multiplication: the port of ``ops/msm.py``.
 
-The reference's dyadic-tree + Fenwick algorithm, kept so its pieces can
-be held against the reference: per window, sort (digit, index) keys,
-fold the digit-sorted points up a binary tree of complete adds
-(``curve.fold``: two levels of all windows a K3 launch), assemble every
-bucket prefix C_b from <= log2(n)+1 tree nodes (``curve.masked_add``: one
-launch a level), and telescope
-sum_b b * D_b = (B-1) * C_{B-1} - sum_{b<B-1} C_b.  With the
-2^(cw)-shifted window tables of ``build_tables`` the windows need no
-Horner doubling chain.  Affine results are unique, so a bucket
-Pippenger can replace this later without changing any proof byte.
+``msm`` and ``msm_many`` are Pippenger bucket sums (K7,
+``ops/cuda_msm.py``): with the 2^(cw)-shifted window tables of
+``build_tables`` each commitment is ONE bucket set over all of its
+windows (row w*n + i into bucket d_{w,i}; the commitment is
+sum_b b * B_b), with no window fold; without tables (from
+``TABLELESS_MIN_N`` points) each window is a set over the bare points and
+the window sums fold by Horner doublings.  K7 on a card, its plain
+version on the CPU.
+
+The reference's dyadic-tree + Fenwick algorithm stays as ``msm_tree`` /
+``msm_many_tree``, the tests' and the smoke's reference (no prove path
+calls it): per window, sort (digit, index) keys, fold the digit-sorted
+points up a binary tree of complete adds (``curve.fold``: two levels of
+all windows a K3 launch), assemble every bucket prefix C_b from <=
+log2(n)+1 tree nodes (``curve.masked_add``: one launch a level), and
+telescope sum_b b * D_b = (B-1) * C_{B-1} - sum_{b<B-1} C_b.  Affine
+results are unique, so both give the same commitments.
 
 Scalars are PLAIN (non-Montgomery) Fr limbs; points are affine
 Montgomery Fq limb tensors (no identities).
@@ -22,10 +29,11 @@ import functools
 import numpy as np
 import torch
 
+from halo2_aes_tpu_torch.ops import cuda_msm as CM
 from halo2_aes_tpu_torch.ops import curve as CV
 from halo2_aes_tpu_torch.ops import field as F
 
-SCALAR_BITS = 254
+SCALAR_BITS = CM.SCALAR_BITS
 
 
 # Max gathered rows (windows x points) per window group.  The reference
@@ -53,8 +61,7 @@ def default_window(n: int) -> int:
     for c in range(6, 17):
         if c + lg > 32:
             continue
-        w = -(-SCALAR_BITS // c)
-        cost = w * (n + (1 << c) * (lg + 2))
+        cost = CM.windows(c) * (n + (1 << c) * (lg + 2))
         if best_cost is None or cost < best_cost:
             best, best_cost = c, cost
     return best
@@ -62,21 +69,7 @@ def default_window(n: int) -> int:
 
 def digit_matrix(scalars, c: int):
     """(n, 16) plain limbs -> (windows, n) int64 window digits, LSB first."""
-    s = scalars.to(torch.int64)
-    windows = -(-SCALAR_BITS // c)
-    mask = (1 << c) - 1
-    rows = []
-    for w in range(windows):
-        start = w * c
-        l, off = divmod(start, F.LIMB_BITS)
-        v = s[..., l] >> off
-        got = F.LIMB_BITS - off
-        while got < c and l + 1 < F.LIMBS:
-            l += 1
-            v = v | (s[..., l] << got)
-            got += F.LIMB_BITS
-        rows.append(v & mask)
-    return torch.stack(rows)
+    return CM.digits_plain(scalars, 1, c)[0]
 
 
 def _tree_add(pts):
@@ -187,7 +180,7 @@ def build_tables(points, c: int):
     equals the reference's per-window normalisation)."""
     px, py = points
     n = px.shape[0]
-    W = -(-SCALAR_BITS // c)
+    W = CM.windows(c)
     cur = CV.affine_to_proj((px, py))
     xs, ys, zs = [], [], []
     for w in range(W):
@@ -208,7 +201,23 @@ def msm(points, scalars, c: int | None = None, tables=None):
 
     points: (x, y) affine Montgomery limb tensors, each (n, 16);
     scalars: (n, 16) PLAIN Fr limbs; tables: optional ``build_tables``
-    output (n a power of two): windows come pre-scaled, no Horner fold."""
+    output: windows come pre-scaled, one bucket set, no Horner fold.
+    Without tables one set a window and the Horner doublings."""
+    n = points[0].shape[0]
+    if c is None:
+        c = default_window(n)
+    s = CM.bucket_sums(points, scalars, 1, c, tables)
+    if tables is not None:
+        return tuple(t[0] for t in s)
+    acc = CV.identity(device=points[0].device)
+    for w in range(s[0].shape[0] - 1, -1, -1):
+        acc = CV.add(CV.double_n(acc, c), (s[0][w], s[1][w], s[2][w]))
+    return acc
+
+
+def msm_tree(points, scalars, c: int | None = None, tables=None):
+    """``msm`` by the reference's sorted-prefix tree (tests' reference):
+    tables need a power-of-two n; without them n is padded."""
     px, py = points
     n = px.shape[0]
     if c is None:
@@ -247,23 +256,32 @@ def msm(points, scalars, c: int | None = None, tables=None):
 def msm_many(points, scalars_flat, count: int, c: int, tables):
     """``count`` MSMs over the SAME points in one pass: scalars_flat is
     FLAT (count*n, 16) plain Fr limbs (commitment i at rows
-    [i*n, (i+1)*n)).  Every commitment's windows join one window axis,
-    so each tree level is one batched add for all of them.  Requires
-    the shifted window ``tables`` and power-of-two n; with ``tables``
-    None (from ``TABLELESS_MIN_N`` points on) each commitment is one
-    ``msm`` without them.  Returns a projective triple of (count, 16)
-    tensors."""
+    [i*n, (i+1)*n)).  With the shifted window ``tables`` one K7 pass,
+    one bucket set a commitment; with ``tables`` None (from
+    ``TABLELESS_MIN_N`` points on) each commitment is one ``msm``
+    without them.  Returns a projective triple of (count, 16) tensors."""
+    if tables is not None:
+        return CM.bucket_sums(points, scalars_flat, count, c, tables)
+    n = points[0].shape[0]
+    sums = [msm(points, scalars_flat[i * n:(i + 1) * n], c)
+            for i in range(count)]
+    return tuple(torch.stack([s[j] for s in sums]) for j in range(3))
+
+
+def msm_many_tree(points, scalars_flat, count: int, c: int, tables):
+    """``msm_many`` by the reference's sorted-prefix tree (tests'
+    reference): every commitment's windows join one window axis, so each
+    tree level is one batched add for all of them; power-of-two n."""
     px, py = points
     n = px.shape[0]
     assert n & (n - 1) == 0, "tables require power-of-two n"
     if tables is None:
-        sums = [msm(points, scalars_flat[i * n:(i + 1) * n], c)
+        sums = [msm_tree(points, scalars_flat[i * n:(i + 1) * n], c)
                 for i in range(count)]
         return tuple(torch.stack([s[j] for s in sums]) for j in range(3))
-    W = -(-SCALAR_BITS // c)
+    W = CM.windows(c)
     assert tables.shape == (W * n, 2 * F.LIMBS)
-    digs = torch.cat([digit_matrix(scalars_flat[i * n:(i + 1) * n], c)
-                      for i in range(count)])                 # (count*W, n)
+    digs = CM.digits_plain(scalars_flat, count, c).reshape(count * W, n)
     total = count * W
     group = max(1, min(total, _GROUP_ROWS // n))
     n_groups = -(-total // group)

@@ -35,7 +35,7 @@ k=11 mini-AES golden proof); ``ctr`` (a two-chunk k=17 keystream
 bundle).  ``--row-cap`` lowers the transforms' row cap
 (``ops/ntt.ROW_CAP``) for every task, so toy sizes run three and more
 passes.  Each rank prints one JSON line
-last: its results and K1/K2/K3 launches.
+last: its results and K1/K2/K3/K7 launches.
 """
 
 from __future__ import annotations
@@ -485,10 +485,10 @@ TASKS = {"dryrun": lambda mesh, _: dryrun_rank(mesh), "ntt": _task_ntt,
 
 
 def _launches() -> dict:
-    from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_ntt
+    from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_msm, cuda_ntt
 
     return {"K1": cuda_field.LAUNCHES, "K2": cuda_ntt.LAUNCHES,
-            "K3": cuda_curve.LAUNCHES}
+            "K3": cuda_curve.LAUNCHES, "K7": cuda_msm.LAUNCHES}
 
 
 def main(argv=None) -> int:
@@ -531,9 +531,10 @@ def main(argv=None) -> int:
         device = f"cuda:{args.rank % torch.cuda.device_count()}"
     mesh = comm.init_mesh(args.backend, args.rank, args.world_size,
                           args.init_method, device, timeout=RANK_TIMEOUT)
-    from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_ntt
+    from halo2_aes_tpu_torch.ops import cuda_curve, cuda_field, cuda_msm, cuda_ntt
 
     cuda_field.LAUNCHES = cuda_ntt.LAUNCHES = cuda_curve.LAUNCHES = 0
+    cuda_msm.LAUNCHES = 0
     comm.reset_counts()
     results = {}
     try:

@@ -1,8 +1,8 @@
 """Point- and table-sharded MSM with a collective reduce: the port of
 ``parallel/msm.py``.
 
-Each rank runs the one-device windowed MSM (``ops/msm.py``: K3 on a
-card) on its slice of the points AND of the SRS's 2^(cw)-shifted window
+Each rank runs the one-device bucket MSM (``ops/msm.py``: K7 on a card)
+on its slice of the points AND of the SRS's 2^(cw)-shifted window
 tables, so no rank pays the Horner doubling tail.  The partial sums (one
 projective point per rank and commitment) are all-gathered and
 tree-added on every rank (``msm._tree_add``): size-1 extra adds, and

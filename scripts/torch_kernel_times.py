@@ -3,8 +3,8 @@
 shapes of a k=20 prove, on one CUDA card.
 
   python3 scripts/torch_kernel_times.py [--tree DIR] [--lg 20] [--count 45]
-      [--polys 8] [--quotient-k 20,23] [--grand-k 20] [--split-lg 23]
-      [--only-splits]
+      [--polys 8] [--quotient-k 20,23] [--grand-k 20] [--msm-lg 20]
+      [--only-msm] [--split-lg 23] [--only-splits]
       [--out FILE]
 
 ``--tree`` imports ``halo2_aes_tpu_torch`` from another checkout (default:
@@ -36,6 +36,13 @@ else through ``cuda_ntt.ntt_fused``).  CUDA-event medians
             chunks) over random columns with zero denominators planted,
             K6 against its plain version and the eager path, bit-exact,
             with times, the bound and each launch's device time
+  K7        with ``--msm-lg L`` (where the tree has ``ops/cuda_msm.py``):
+            K7 against its plain version at small shapes, bit for bit at
+            each step, then ``polys`` commitments over 2^L points with the
+            window tables, K7 against the sorted-prefix tree (affine
+            sums equal, times, peaks), K7's launches, each K7 kernel's
+            device time and the bound of the MSM's work; ``--only-msm``
+            times nothing after it
   splits    with ``--split-lg L`` (where the tree has ``ops/ntt.ROW_CAP``):
             count transforms of 2^L with a coset shift, and inverse, at
             each row cap that gives another split of L (rows of at most
@@ -337,6 +344,219 @@ def grand_products_times(dev, k: int, bf: int | None = None) -> dict:
     return rec
 
 
+def msm_buckets_check(dev) -> dict:
+    """K7 against its plain version at small shapes, bit for bit at each
+    step (digits, the counting sort's lists, the buckets at a given slice
+    length, the weighted sums): with tables (3 commitments of 2^10
+    points at c = 6, 2 of 2^12 at c = 12, one with every digit 5) and
+    without (2^10 points at c = 7, one set a window); and the affine sums
+    equal the host's."""
+    import torch
+
+    from halo2_aes_tpu_torch.backend import srs as SRS
+    from halo2_aes_tpu_torch.ops import cuda_msm as CM
+    from halo2_aes_tpu_torch.ops import curve as CV
+    from halo2_aes_tpu_torch.ops import field as F
+    from halo2_aes_tpu_torch.ops import msm as MSM
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    cpu = torch.device("cpu")
+    out = []
+    for lg, count, c, tabled, slice, equal in (
+            (10, 3, 6, True, 32, False), (12, 2, 12, True, 64, False),
+            (10, 1, 6, True, 37, True), (10, 1, 7, False, 32, False)):
+        n = 1 << lg
+        srs = SRS.setup(lg, dev, cache_dir=None)
+        pts = (srs.g1_x, srs.g1_y)
+        tables = MSM.build_tables(pts, c) if tabled else None
+        if equal:
+            v = sum(5 << (c * w) for w in range(CM.windows(c) - 1))
+            scal = F.limbs(F.ints_to_limbs_fast([v] * n), dev)
+        else:
+            scal = torch.randint(0, 1 << 16, (count * n, F.LIMBS), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            scal[:, -1] %= int(F.FR.p_limbs[-1])
+        W = CM.windows(c)
+        sets, R = (count, W * n) if tabled else (W, n)
+        if tables is not None:
+            dx, dy = tables[:, :F.LIMBS], tables[:, F.LIMBS:]
+            hx, hy = dx.to(cpu), dy.to(cpu)
+        else:
+            dx, dy = pts
+            hx, hy = dx.to(cpu), dy.to(cpu)
+        digs = CM.digits(scal, count, c).reshape(sets, R)
+        hdigs = CM.digits_plain(scal.to(cpu), count, c).reshape(sets, R)
+        same_digits = torch.equal(digs.to(cpu).to(torch.int64) & 0xFFFF, hdigs)
+        rows, starts = CM.sort(digs, c)
+        hrows, hstarts = CM.sort_plain(hdigs, c)
+        total = int(hstarts[-1])
+        same_lists = (torch.equal(starts.to(cpu), hstarts)
+                      and torch.equal(rows[:total].to(cpu), hrows[:total]))
+        bucket = CM.accumulate(dx, dy, rows, starts, slice)
+        hbucket = CM.accumulate_plain(hx, hy, hrows, hstarts, slice)
+        same_buckets = all(torch.equal(a.to(cpu), b) for a, b in zip(bucket, hbucket))
+        sums = CM.reduce(bucket, sets, c)
+        hsums = CM.reduce_plain(hbucket, sets, c)
+        same_sums = all(torch.equal(a.to(cpu), b) for a, b in zip(sums, hsums))
+        got = CV.to_affine_host(MSM.msm_many(pts, scal, count, c, tables)
+                                if tabled else MSM.msm(pts, scal, c=c))
+        host_pts = list(zip(F.FQ.decode(srs.g1_x), F.FQ.decode(srs.g1_y)))
+        want = [CV.host_msm(host_pts, F.FR.decode(
+            F.to_mont(F.FR, scal[i * n:(i + 1) * n].to(cpu)))) for i in range(count)]
+        rec = {"lg": lg, "count": count, "c": c, "tables": tabled, "slice": slice,
+               "every_digit_5": equal, "listed_rows": total,
+               "digits_equal": same_digits, "lists_equal": same_lists,
+               "buckets_equal": same_buckets, "sums_equal": same_sums,
+               "affine_equal_host": got == want}
+        out.append(rec)
+        if not all(v for k, v in rec.items() if k.endswith(("_equal", "_host"))):
+            raise AssertionError(f"K7 differs from its plain version: {rec}")
+    return {"cases": out, "bit_exact": True}
+
+
+def msm_buckets_plain(scal, tables, polys: int, n: int, c: int, slice: int) -> dict:
+    """K7's four steps against their plain versions on the same card
+    tensors, at the main path's shape and the card's slice length, bit
+    for bit at each step: the plain chain (``digits_plain``,
+    ``sort_plain``, ``accumulate_plain``, ``reduce_plain``) runs on the
+    card beside K7's.  Returns each step's differing entries (0: equal),
+    the plain steps' times (one synchronised call each, ms), and the
+    sort step timed on its own: K7's sort against ``sort_plain`` on
+    K7's digits, CUDA-event medians and the peak memory each allocates
+    above what it is given."""
+    import torch
+
+    from halo2_aes_tpu_torch.ops import cuda_msm as CM
+    from halo2_aes_tpu_torch.ops import field as F
+    from halo2_aes_tpu_torch.ops.timing import time_ms
+
+    sets, R = polys, CM.windows(c) * n
+    px, py = tables[:, :F.LIMBS], tables[:, F.LIMBS:]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    def differ(a, b):
+        return int((a != b).reshape(a.shape[0], -1).any(-1).sum())
+
+    digs = CM.digits(scal, polys, c).reshape(sets, R)
+    sort = {"k7_ms": time_ms(lambda: CM.sort(digs, c), 1, 5),
+            "plain_ms": time_ms(lambda: CM.sort_plain(digs, c), 1, 3),
+            "k7_peak_bytes": peak(lambda: CM.sort(digs, c)),
+            "plain_peak_bytes": peak(lambda: CM.sort_plain(digs, c))}
+    ms, errors = {}, {}
+    hdigs, ms["digits"] = timed(lambda: CM.digits_plain(scal, polys, c).reshape(sets, R))
+    errors["digits"] = differ(digs.to(torch.int64) & 0xFFFF, hdigs)
+    rows, starts = CM.sort(digs, c)
+    del digs
+    (hrows, hstarts), ms["sort"] = timed(lambda: CM.sort_plain(hdigs, c))
+    del hdigs
+    total = int(hstarts[-1])
+    errors["starts"] = differ(starts, hstarts)
+    errors["rows"] = differ(rows[:total], hrows[:total])
+    bucket = CM.accumulate(px, py, rows, starts, slice)
+    del rows, starts
+    hbucket, ms["accumulate"] = timed(
+        lambda: CM.accumulate_plain(px, py, hrows, hstarts, slice))
+    del hrows, hstarts
+    errors["buckets"] = sum(differ(a, b) for a, b in zip(bucket, hbucket))
+    sums = CM.reduce(bucket, sets, c)
+    hsums, ms["reduce"] = timed(lambda: CM.reduce_plain(hbucket, sets, c))
+    errors["sums"] = sum(differ(a, b) for a, b in zip(sums, hsums))
+    rec = {"slice": slice, "listed_rows": total, "errors": errors,
+           "bit_exact": not any(errors.values()), "plain_step_ms": ms,
+           "plain_ms": sum(ms.values()), "sort": sort}
+    if not rec["bit_exact"]:
+        raise AssertionError(f"K7 differs from its plain version at {polys} x {n}: {rec}")
+    return rec
+
+
+def msm_buckets_times(dev, lg: int, polys: int) -> dict:
+    """``polys`` commitments of random scalars over 2^lg SRS points with
+    the window tables (the prover's ``msm_many`` shape): K7's affine sums
+    equal the sorted-prefix tree's, and each of K7's steps its plain
+    version's (``msm_buckets_plain``); CUDA-event medians of K7 and the
+    tree, K7's launches and each K7 kernel's device time from
+    torch.profiler, the peak memory of each route, and the bound of the
+    work (``benchmark/metrics/commit_roofline.work``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import roofline
+    from benchmark.metrics import commit_roofline
+    from halo2_aes_tpu_torch.backend import srs as SRS
+    from halo2_aes_tpu_torch.ops import cuda_curve as CC
+    from halo2_aes_tpu_torch.ops import cuda_msm as CM
+    from halo2_aes_tpu_torch.ops import curve as CV
+    from halo2_aes_tpu_torch.ops import field as F
+    from halo2_aes_tpu_torch.ops import msm as MSM
+    from halo2_aes_tpu_torch.ops.timing import time_ms
+
+    n = 1 << lg
+    srs = SRS.setup(lg, dev)
+    srs.warm_tables()
+    c = MSM.default_window(n)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(lg)
+    scal = torch.randint(0, 1 << 16, (polys * n, F.LIMBS), generator=gen,
+                         device=dev, dtype=torch.int32)
+    scal[:, -1] %= int(F.FR.p_limbs[-1])
+    pts = (srs.g1_x, srs.g1_y)
+
+    def k7():
+        return MSM.msm_many(pts, scal, polys, c, srs._msm_tables)
+
+    def tree():
+        return MSM.msm_many_tree(pts, scal, polys, c, srs._msm_tables)
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = CV.to_affine_host(fn())
+        return got, torch.cuda.max_memory_allocated(dev) - base
+
+    before = (CM.LAUNCHES, CC.LAUNCHES)
+    got, k7_peak = peak(k7)
+    launches = {"K7": CM.LAUNCHES - before[0], "K3": CC.LAUNCHES - before[1]}
+    want, tree_peak = peak(tree)
+    if got != want:
+        raise AssertionError(f"K7: {polys} commitments at 2^{lg} differ from the tree's")
+    bound_s, bound_by = roofline.least_seconds(*commit_roofline.work(polys, n))
+    rec = {"lg": lg, "polys": polys, "window": c, "windows": CM.windows(c),
+           "equal_tree": True, "launches": launches,
+           "k7_ms": time_ms(k7, 1, 5), "tree_ms": time_ms(tree, 1, 3),
+           "k7_peak_bytes": k7_peak, "tree_peak_bytes": tree_peak,
+           "bound_ms": bound_s * 1e3,
+           "bound_by": "bytes" if bound_by == "memory" else "operations",
+           "slice": CM.slice_len(polys * CM.windows(c) * n, polys << c, dev)}
+    rec["share_of_bound"] = rec["bound_ms"] / rec["k7_ms"]
+    rec["plain"] = msm_buckets_plain(scal, srs._msm_tables, polys, n, c, rec["slice"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        k7()
+        torch.cuda.synchronize()
+    rec["kernels_us"] = {e.key: {"calls": e.count,
+                                 "device_us": getattr(e, "device_time_total",
+                                                      getattr(e, "cuda_time_total", 0))}
+                         for e in prof.key_averages()}
+    del scal
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=REPO)
@@ -346,6 +566,8 @@ def main() -> int:
     ap.add_argument("--quotient-k", default="20")
     ap.add_argument("--grand-k", default="")
     ap.add_argument("--split-lg", type=int, default=0)
+    ap.add_argument("--msm-lg", type=int, default=0)
+    ap.add_argument("--only-msm", action="store_true")
     ap.add_argument("--only-splits", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -383,6 +605,13 @@ def main() -> int:
     if args.grand_k:
         out["grand_products"] = [grand_products_times(dev, int(k))
                                  for k in args.grand_k.split(",")]
+    if args.msm_lg and os.path.exists(os.path.join(
+            args.tree, "halo2_aes_tpu_torch", "ops", "cuda_msm.py")):
+        out["msm_buckets"] = {"check": msm_buckets_check(dev),
+                              "times": msm_buckets_times(dev, args.msm_lg,
+                                                         args.polys)}
+    if args.only_msm:
+        return _emit(out, args.out)
     if args.split_lg:
         out["splits"] = split_times(N, cuda_ntt, F, random_fr, args.split_lg,
                                     count, time_ms, dev)
