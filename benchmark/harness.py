@@ -220,6 +220,8 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, traced: boo
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)   # the window's peaks are read
+    held = torch.cuda.memory_allocated(device) if cuda else 0
     c0 = time.perf_counter()
     from benchmark.reference.check import Reference
 
@@ -239,7 +241,10 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, traced: boo
             mismatched.add(i)
             log(f"proof {i}: {r}")
     del ref
-    log(f"reference judged {len(checked)} proof(s) in {time.perf_counter() - c0:.3f} s")
+    ref_peak = (f", device peak {torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB "
+                f"({held / 1e9:.3f} GB held before it)" if cuda else "")
+    log(f"reference judged {len(checked)} proof(s) in {time.perf_counter() - c0:.3f} s"
+        + ref_peak)
 
     failed = raised + len(unverified | mismatched)
     compared = {"requests_failed": failed, "proofs_unverified": len(unverified),

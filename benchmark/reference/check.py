@@ -43,6 +43,12 @@ LIMBS = F.LIMBS
 DEV_SRS_SEED = b"halo2_aes_tpu dev srs"
 TWO_ADICITY = 28
 DELTA = pow(7, 1 << TWO_ADICITY, P)
+# the grand products' z columns are worked out GRAND_COLUMNS at a time,
+# GRAND_ROWS rows a pass: the check holds a few (GRAND_COLUMNS,
+# GRAND_ROWS, 16) int64 blocks at a time, whatever n and the number of
+# lookups are
+GRAND_COLUMNS = 4
+GRAND_ROWS = 1 << 20
 
 
 def tau_of(seed: bytes) -> int:
@@ -198,15 +204,13 @@ class Reference:
         fixed = np.asarray(layout.fixed, dtype=np.int64)
         for c in self.fixed_ids:
             self._add_poly(("fixed", c), self._small(fixed[c]))
-        self.map_col, self.map_row = build_assembly(self.perm_cols, n, layout.copy_pairs)
+        map_col, map_row = build_assembly(self.perm_cols, n, layout.copy_pairs)
         deltas = F.mont([pow(DELTA, i, P) for i in range(max(len(self.perm_cols), 1))],
                         self.dev)
-        mc = torch.as_tensor(self.map_col, device=self.dev)
-        mr = torch.as_tensor(self.map_row, device=self.dev)
-        self.sigma_mont = [F.mul(deltas[mc[i]], self.W[mr[i]])
-                           for i in range(len(self.perm_cols))]
-        for i, s in enumerate(self.sigma_mont):
-            self._add_poly(("sigma", i), F.from_mont(s))
+        for i in range(len(self.perm_cols)):       # sigma_i = delta^col w^row of the next cell
+            mc = torch.as_tensor(map_col[i], device=self.dev)
+            mr = torch.as_tensor(map_row[i], device=self.dev)
+            self._add_poly(("sigma", i), F.from_mont(F.mul(deltas[mc], self.W[mr])))
         self._dots([("fixed", c) for c in self.fixed_ids]
                    + [("sigma", i) for i in range(len(self.perm_cols))],
                    self.tau_bases, self.tau_vals)
@@ -358,54 +362,59 @@ class Reference:
         beta = tr.challenge()
         gamma = tr.challenge()
 
-        # grand products
+        # grand products: GRAND_COLUMNS z columns at a time, GRAND_ROWS
+        # rows a pass
         z_bl = rand_field(rng, self.chunks, bf)
         lkz_bl = rand_field(rng, max(L, 1), bf)
         rand_coeffs = rand_field(rng, n)
         one = F.one(dev)
-        rows_active = (torch.arange(n, device=dev) < u)[:, None]
-        nums, dens = [], []
-        beta_m, gamma_m = F.mont([beta], dev)[0], F.mont([gamma], dev)[0]
-        for t in range(self.chunks):
-            num = den = None
-            for i in range(t * self.chunk_len, min((t + 1) * self.chunk_len,
-                                                   len(self.perm_cols))):
-                v = F.add(F.small_to_mont(torch.as_tensor(
-                    values[self.perm_cols[i]], device=dev)), gamma_m)
-                idv = F.mul(self.W, F.mont([beta * pow(DELTA, i, P)], dev)[0])
-                a_ = F.add(v, idv)
-                b_ = F.add(v, F.mul(self.sigma_mont[i], beta_m))
-                num = a_ if num is None else F.mul(num, a_)
-                den = b_ if den is None else F.mul(den, b_)
-            nums.append(num)
-            dens.append(den)
-        for li, (comp, in_r, tab_r, ar, sr) in enumerate(lk_data):
+        gamma_m = F.mont([gamma], dev)[0]
+        beta_sigma = F.mont([beta * F.R % P], dev)[0]   # std sigma -> beta sigma, mont
+
+        def perm_factors(cols):
+            def factors(lo, hi):
+                num = den = None
+                for i in cols:
+                    v = F.add(F.small_to_mont(torch.as_tensor(
+                        values[self.perm_cols[i], lo:hi], device=dev)), gamma_m)
+                    idv = F.mul(self.W[lo:hi], F.mont([beta * pow(DELTA, i, P)], dev)[0])
+                    sig = self.polys[("sigma", i)][lo:hi].to(torch.int64)
+                    a_ = F.add(v, idv)
+                    b_ = F.add(v, F.mul(sig, beta_sigma))
+                    num = a_ if num is None else F.mul(num, a_)
+                    den = b_ if den is None else F.mul(den, b_)
+                return num, den
+            return factors
+
+        def lookup_factors(comp, in_r, tab_r, ar, sr):
             ap = F.mont([(c + beta) % P for c in comp], dev)
             sp = F.mont([(c + gamma) % P for c in comp], dev)
-            num = one.expand(n, LIMBS).clone()
-            den = one.expand(n, LIMBS).clone()
-            num[:u] = F.mul(ap[in_r], sp[tab_r])
-            den[:u] = F.mul(ap[ar], sp[sr])
-            nums.append(num)
-            dens.append(den)
-        if nums:
-            num = torch.stack(nums)
-            ratio = F.mul(num, F.batch_inv(torch.stack(dens)))
-            ratio = torch.where(rows_active[None], ratio, one)
-            cum = F.scan(ratio)
-            del num, ratio
-            init = 1
-            for t in range(self.chunks + L):
-                z = torch.cat([one[None], cum[t, :-1]])
-                if t < self.chunks:
-                    z = F.mul(z, F.mont([init], dev)[0])
-                    init = init * F.decode(cum[t, u - 1])[0] % P
-                    blind, key = z_bl[t], ("perm_z", t)
-                else:
-                    blind, key = lkz_bl[t - self.chunks], ("lookup_z", t - self.chunks)
-                z[n - bf:] = torch.as_tensor(blind, device=dev)
-                self._add_poly(key, F.from_mont(z))
-            del cum
+
+            def factors(lo, hi):
+                num = one.expand(hi - lo, LIMBS).clone()
+                den = one.expand(hi - lo, LIMBS).clone()
+                top = min(hi, u)
+                if top > lo:
+                    num[:top - lo] = F.mul(ap[in_r[lo:top]], sp[tab_r[lo:top]])
+                    den[:top - lo] = F.mul(ap[ar[lo:top]], sp[sr[lo:top]])
+                return num, den
+            return factors
+
+        columns = [(("perm_z", t), perm_factors(range(
+            t * self.chunk_len, min((t + 1) * self.chunk_len, len(self.perm_cols)))),
+                    z_bl[t]) for t in range(self.chunks)]
+        columns += [(("lookup_z", li), lookup_factors(*data), lkz_bl[li])
+                    for li, data in enumerate(lk_data)]
+        totals = []
+        for lo in range(0, len(columns), GRAND_COLUMNS):
+            totals += self._z_columns(columns[lo:lo + GRAND_COLUMNS])
+        init = one                   # chunk t's z starts where chunk t - 1's ended
+        for t in range(1, self.chunks):
+            init = F.mul(init, totals[t - 1])
+            z = self.polys[("perm_z", t)]
+            for lo in range(0, n - bf, GRAND_ROWS):
+                hi = min(lo + GRAND_ROWS, n - bf)
+                z[lo:hi] = F.mul(z[lo:hi].to(torch.int64), init)
         self._add_poly(("random",), F.from_mont(torch.as_tensor(rand_coeffs, device=dev)))
         z_keys = ([("perm_z", t) for t in range(self.chunks)]
                   + [("lookup_z", i) for i in range(L)])
@@ -513,6 +522,39 @@ class Reference:
                 "quotient_mismatched": 0 if quotient_ok else 1,
                 "extra_bytes": abs(len(proof) - 32 * len(tr.words)),
                 "first_mismatch": first}
+
+    def _z_columns(self, columns):
+        """Grand products z[j] = prod_{r < j} num_r / den_r (ratio 1 on
+        the rows past the usable ones) for ``columns`` of (key, factors,
+        blinding values), GRAND_ROWS rows a pass, ``factors(lo, hi)``
+        giving a column's num and den on those rows (Montgomery); each
+        z, its last rows the blinding values, is stored as a poly.
+        Returns each column's product of every ratio (Montgomery)."""
+        n, u, dev = self.n, self.usable, self.dev
+        one = F.one(dev)
+        zs = [torch.empty((n, LIMBS), dtype=torch.int32, device=dev) for _ in columns]
+        totals = one.expand(len(columns), LIMBS)
+        for lo in range(0, n, GRAND_ROWS):
+            hi = min(lo + GRAND_ROWS, n)
+            num = torch.empty((len(columns), hi - lo, LIMBS), dtype=torch.int64, device=dev)
+            den = torch.empty_like(num)
+            for c, (_, factors, _) in enumerate(columns):
+                num[c], den[c] = factors(lo, hi)
+            ratio = F.mul(num, F.batch_inv(den))
+            del num, den
+            ratio[:, max(u - lo, 0):] = one
+            cum = F.scan(ratio)
+            del ratio
+            prev = F.mul(torch.cat([one.expand(len(columns), 1, LIMBS), cum[:, :-1]], 1),
+                         totals[:, None])
+            for z, p in zip(zs, F.from_mont(prev)):
+                z[lo:hi] = p
+            totals = F.mul(cum[:, -1], totals)
+            del cum, prev
+        for z, (key, _, blind_mont) in zip(zs, columns):
+            z[n - self.bf:] = F.from_mont(torch.as_tensor(blind_mont, device=dev))
+            self.polys[key] = z
+        return list(totals)
 
     def _affine(self, a: int, b: int, c_hx):
         pt = CV.mul(CV.G1, a)

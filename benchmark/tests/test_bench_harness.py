@@ -196,3 +196,45 @@ def test_lone_benchmark_directory_no_result(tmp_path):
                     ignore=shutil.ignore_patterns("__pycache__"))
     p = _cli(str(tmp_path))
     assert p.returncode != 0 and p.stdout.strip() == ""
+
+
+K22 = {"circuit": "aes128", "k": 22, "n_sets": 4, "n_blocks": 12335, "tagged_ops": False,
+       "lookup_sort": "field", "multiopen": "shplonk", "srs": "dev"}
+REF_PEAK = re.compile(r"reference judged .* s, device peak ([0-9.]+) GB")
+
+
+@pytest.mark.chip
+def test_k22_proof_is_judged_on_the_card(card, tmp_path, monkeypatch):
+    """Upstream's AES-128 layout at k=22 (N=4, 12,335 blocks, the
+    capacity; SHPLONK, field-ordered lookups, dev SRS), added as a
+    configuration file and a cell of a temporary root: one proof on the
+    card is judged correct by the reference within 60 GB of device
+    memory, and not correct with a plaintext bit flipped under it.  The
+    program proves on its host-rest path (idle stacks in host memory, the
+    lookups' pairs one at a time), its own from k=23, lowered to 22: its
+    k=22 default runs out of the card's memory in the lookup phase."""
+    from halo2_aes_tpu_torch.backend import rest
+
+    monkeypatch.setattr(rest, "HOST_REST_MIN_K", 22)
+    root = toy.make_root(str(tmp_path), REPO)
+    with open(os.path.join(root, "benchmark", "configs", "aes128-k22-n4.json"), "w") as f:
+        json.dump(K22, f)
+    bench = harness.load_benchmark(root)
+    bench["configs"] = [{"name": "aes128-k22-n4", "source": "benchmark/tests",
+                         "file": "benchmark/configs/aes128-k22-n4.json", "reduced": [],
+                         "why": "k=22 on one card"}]
+    bench["workloads"] = [{"name": "aes128-k22-n4.closed", "config": "aes128-k22-n4",
+                           "traffic": "closed", "chips": 1, "why": "k=22 on one card"}]
+    for control in (None, "altered"):
+        lines = []
+
+        def log(msg):
+            lines.append(msg)
+            harness._log(msg)
+
+        out = harness.run_cell(bench, "aes128-k22-n4.closed", SEED, 1.0, False, card,
+                               time.perf_counter(), root, control=control, log=log)
+        harness._log(json.dumps(out))
+        assert out["correct"] is (control is None) and out["attempted"] == 1
+        peak = float(next(REF_PEAK.search(m) for m in lines if REF_PEAK.search(m))[1])
+        assert peak <= 60.0, peak

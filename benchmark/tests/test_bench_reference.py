@@ -56,6 +56,79 @@ def test_flipped_words_are_caught(proofs, name):
         assert r["points_mismatched"] + r["scalars_mismatched"] + r["quotient_mismatched"] > 0, w
 
 
+@pytest.mark.parametrize("rows,columns", [(16, 1), (24, 3)], ids=["rows16-cols1", "rows24-cols3"])
+@pytest.mark.parametrize("name", TOYS)
+def test_grand_products_in_passes(proofs, name, rows, columns, monkeypatch):
+    """GRAND_ROWS and GRAND_COLUMNS lowered, so that the z columns take
+    several groups and each group several passes (with 24 of 64 rows, a
+    short last one and one across the end of the usable rows): the
+    judgement is the one pass's, exact on the port's proof, and a flipped
+    bit in the first, a middle, the last and every grand-product word is
+    caught."""
+    (rlayout, rvalues), _, proof = proofs[name]
+    monkeypatch.setattr(RC, "GRAND_ROWS", rows)
+    monkeypatch.setattr(RC, "GRAND_COLUMNS", columns)
+    inverted = []
+    real_inv = RF.batch_inv
+
+    def batch_inv(x):
+        inverted.append(tuple(x.shape[:2]))
+        return real_inv(x)
+
+    monkeypatch.setattr(RF, "batch_inv", batch_inv)
+    ref = RC.Reference(rlayout, "cpu")
+    inverted.clear()
+    r = ref.check(rvalues, 1234, proof)
+    assert r == {"points_mismatched": 0, "scalars_mismatched": 0,
+                 "quotient_mismatched": 0, "extra_bytes": 0, "first_mismatch": None}
+    zs = ref.chunks + ref.n_lk
+    groups = [min(columns, zs - g) for g in range(0, zs, columns)]
+    heights = [rows] * (ref.n // rows) + [ref.n % rows] * (ref.n % rows > 0)
+    assert zs > 0 and len(heights) > 1
+    assert sorted(x for x in inverted if x[1] <= rows) == sorted(
+        (g, h) for g in groups for h in heights)
+    first_z = len(ref.adv_ids) + 2 * ref.n_lk
+    words = len(proof) // 32
+    for w in sorted({0, words // 2, words - 1, *range(first_z, first_z + zs)}):
+        bad = bytearray(proof)
+        bad[32 * w + 3] ^= 0x10
+        r = ref.check(rvalues, 1234, bytes(bad))
+        assert r["points_mismatched"] + r["scalars_mismatched"] + r["quotient_mismatched"] > 0, w
+
+
+@pytest.mark.parametrize("rows,columns", [(None, None), (24, 2)], ids=["one-pass", "rows24-cols2"])
+def test_chained_permutation_chunks(rows, columns, monkeypatch):
+    """The toy circuit with one permutation column a chunk on both sides
+    (three chunks, each z starting where the last one ended, and a
+    lookup): the port's proof verifies and the reference writes it, in
+    one pass and with the chunks split across groups of passes; a
+    flipped bit in any grand-product word is caught."""
+    from halo2_aes_tpu_torch.backend import keygen, prover, srs, verifier
+    from halo2_aes_tpu_torch.circuit import ir as PIR
+    from halo2_aes_tpu_torch.circuit import toys
+
+    for ir in (PIR, RIR):
+        monkeypatch.setattr(ir.ConstraintSystem, "permutation_chunk_len", lambda self: 1)
+    if rows is not None:
+        monkeypatch.setattr(RC, "GRAND_ROWS", rows)
+        monkeypatch.setattr(RC, "GRAND_COLUMNS", columns)
+    layout, values = toys.toy_circuit()
+    pk = keygen.keygen(layout, srs.setup(layout.k, "cpu", cache_dir=None))
+    proof = prover.prove(pk, values, seed=4321)
+    verifier.verify(pk.vk, proof)
+    rlayout, rvalues = toys.toy_circuit(ir=RIR)
+    ref = RC.Reference(rlayout, "cpu")
+    assert ref.chunks == 3 and ref.digest == pk.vk.digest
+    assert ref.check(rvalues, 4321, proof) == {
+        "points_mismatched": 0, "scalars_mismatched": 0, "quotient_mismatched": 0,
+        "extra_bytes": 0, "first_mismatch": None}
+    first_z = len(ref.adv_ids) + 2 * ref.n_lk
+    for w in range(first_z, first_z + ref.chunks + ref.n_lk):
+        bad = bytearray(proof)
+        bad[32 * w + 3] ^= 0x10
+        assert ref.check(rvalues, 4321, bytes(bad))["points_mismatched"] > 0, w
+
+
 def test_wrong_blinding_seed_or_witness_fails(proofs):
     (rlayout, rvalues), _, proof = proofs["toy_circuit"]
     ref = RC.Reference(rlayout, "cpu")
