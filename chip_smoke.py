@@ -86,8 +86,9 @@ Phases, each printing one JSON line as it ends:
                 equals the ordinary proof byte for byte, and so do one
                 with k=22's commitments forced (no MSM window tables)
                 and one with the k=23 switch forced (the pk's and the
-                prove's stacks parked in pinned host memory) and every
-                transform three or four K2 passes (row cap 6), and the
+                prove's stacks parked in pinned host memory), the
+                lookup pairs built one lookup at a time (k=22's form)
+                and every transform three or four K2 passes (row cap 6), and the
                 same crashed after its last checkpoint and resumed from
                 checkpoints saved from the parked stacks; then, with the
                 earlier phases' memory freed, the reference prover binary's shape
@@ -1750,9 +1751,11 @@ def large_forced(pk, values) -> dict:
     flagship proved with the k=22 commitments forced (no MSM window
     tables) and the flagship proved with the k=23 switch forced (the
     pk's and the prove's coefficient stacks parked in pinned host
-    memory) and the NTT's row cap lowered to 6 (every transform three or
-    four K2 passes), also when that prove is crashed after its last
-    checkpoint and resumed."""
+    memory), the permuted lookup pairs built one lookup at a time (the
+    pair sort's limit lowered to 0: the form k >= 22 takes) and the
+    NTT's row cap lowered to 6 (every transform three or four K2
+    passes), also when that prove is crashed after its last checkpoint
+    and resumed."""
     import torch
 
     from halo2_aes_tpu_torch.backend import prover as PV
@@ -1794,19 +1797,24 @@ def large_forced(pk, values) -> dict:
     if tableless != ordinary:
         raise AssertionError("large: the k=17 proof without window tables differs")
     require_launched("large_forced tableless", tableless_counts, TABLELESS_KERNELS)
-    # and the k=23 switch with three-pass transforms
+    # and the k=23 switch with streamed pairs and three-pass transforms
     # (the pk re-made so that its own stacks rest in host memory too); then
     # a checkpointed prove of the same, crashed after its last phase was
     # saved from the parked stacks, resumed from every saved phase
-    saved = PV._LARGE_MIN_K, rest.HOST_REST_MIN_K, N.ROW_CAP
+    saved = (PV._LARGE_MIN_K, rest.HOST_REST_MIN_K, N.ROW_CAP,
+             PV.PAIR_SORT_MAX_BYTES)
     PV._LARGE_MIN_K = rest.HOST_REST_MIN_K = pk.vk.k
     N.ROW_CAP = 6
+    PV.PAIR_SORT_MAX_BYTES = 0
     rest.reset()
     try:
         pk_rested = dataclasses.replace(pk)
         if pk_rested.sigma_coeffs.device.type != "cpu":
             raise AssertionError("large: the forced host-rest pk kept its stacks "
                                  "on the card")
+        ph = PV._get_phases(pk_rested)
+        if not PV.streamed_pairs(ph.n, ph.n_lk):
+            raise AssertionError("large: the forced prove sorts its pairs batched")
         t0 = time.perf_counter()
         rested = PV.prove(pk_rested, values, seed=5)
         torch.cuda.synchronize()
@@ -1815,11 +1823,13 @@ def large_forced(pk, values) -> dict:
             pk_rested, values, 5, os.path.join(REPO, "build", "smoke_checkpoints_k17"),
             RES.PHASES[-1])
     finally:
-        PV._LARGE_MIN_K, rest.HOST_REST_MIN_K, N.ROW_CAP = saved
-    del pk_rested
+        (PV._LARGE_MIN_K, rest.HOST_REST_MIN_K, N.ROW_CAP,
+         PV.PAIR_SORT_MAX_BYTES) = saved
+    del pk_rested, ph
     if rested != ordinary:
         raise AssertionError("large: the k=17 proof with its stacks in host "
-                             "memory and three-pass transforms differs")
+                             "memory, streamed pairs and three-pass transforms "
+                             "differs")
     if resumed != ordinary:
         raise AssertionError("large: the k=17 proof resumed from checkpoints of "
                              "parked stacks differs")
@@ -1828,7 +1838,7 @@ def large_forced(pk, values) -> dict:
     return {"k": pk.vk.k, "identical": True, "sliced_prove_s": sliced_s,
             "tableless_identical": True, "tableless_prove_s": tableless_s,
             "tableless_launches": {k: tableless_counts[k] for k in TABLELESS_KERNELS},
-            "host_rest_row_cap6_identical": True,
+            "host_rest_streamed_pairs_row_cap6_identical": True,
             "host_rest_row_cap6_prove_s": rested_s,
             "host_rest_pinned_peak_bytes": rest.PINNED["peak_bytes"],
             "host_rest_checkpoints_before_resume": checkpointed,

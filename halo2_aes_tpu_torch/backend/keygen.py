@@ -102,10 +102,21 @@ def commit_affine(srs: SRS, coeffs, mesh=None):
     same point the device MSM gives.  With a ``mesh`` (parallel/comm.py)
     the sharded MSM commits at every n, as the reference's mesh prover
     does.  Each call of this and of ``commit_many`` is one ``commit``
-    span (utils/timers.py): its polys, and the SRS points an MSM
-    takes."""
-    with timers.span("commit", polys=1, points=srs.n):
+    span (utils/timers.py): its polys, the SRS points an MSM takes, and
+    ``tables`` (whether window tables were used)."""
+    with timers.span("commit", polys=1, points=srs.n,
+                     tables=_tables_used(srs, mesh)):
         return _commit_one(srs, coeffs, mesh)
+
+
+def _tables_used(srs: SRS, mesh=None) -> int:
+    """1 where the SRS's commitments run on MSM window tables, 0 where
+    they do not (the host MSM of toy domains; the tableless device MSM
+    with its Horner fold): what ``SRS.warm_tables`` built."""
+    if mesh is None and srs.n <= HOST_MSM_MAX_N:
+        return 0
+    srs.warm_tables()
+    return int(srs._msm_tables is not None)
 
 
 def _commit_one(srs: SRS, coeffs, mesh=None):
@@ -127,7 +138,8 @@ def commit_many(srs: SRS, polys, mesh=None) -> list:
     up to COMMIT_BATCH at a time: one K7 pass, one bucket set a poly.
     With a ``mesh``, every group is one sharded ``msm_many`` and one
     all-gather, at every n."""
-    with timers.span("commit", polys=len(polys), points=srs.n):
+    with timers.span("commit", polys=len(polys), points=srs.n,
+                     tables=_tables_used(srs, mesh)):
         return _commit_many(srs, polys, mesh)
 
 

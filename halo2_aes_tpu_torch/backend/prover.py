@@ -34,10 +34,13 @@ size-n sub-coset transforms in place of the 2^(k+2)- and 2^(k+1)-point
 ones, the SHPLONK member fold streams B members at a time, and the
 evaluations go a few polys per stack (``_EVAL_STACK``).  Each sliced
 function equals its unsliced form bit for bit, so the proof bytes do not
-depend on the switch.  From k = ``rest.HOST_REST_MIN_K`` (23) on, every
-coefficient stack rests in pinned host memory from the phase that makes
-it (the pk's from its making) and its readers copy back the polys they
-take (backend/rest.py), and the forms of ``HOST_REST_FORMS`` keep the
+depend on the switch.  The field-ordered permuted lookup pairs are built
+one lookup at a time where the batched sort's keys would not fit
+(``streamed_pairs``: from k = 22 for AES-128's 17 lookups).  From k =
+``rest.HOST_REST_MIN_K`` (23) on, every coefficient stack rests in
+pinned host memory from the phase that makes it (the pk's from its
+making) and its readers copy back the polys they take
+(backend/rest.py), and the forms of ``HOST_REST_FORMS`` keep the
 transients of a phase within one card: the same bytes again.
 ``checkpoint_dir`` saves each of the phases advice, lookup, products
 and quotient (backend/resume.py); ``HALO2_SANITIZE=1`` checks their
@@ -91,14 +94,34 @@ _R_WORDS = np.array([(FR.modulus >> (64 * i)) & ((1 << 64) - 1) for i in range(4
 _LARGE_MIN_K = 19
 # Forms each (below rest.HOST_REST_MIN_K, from it): the second keeps a
 # k >= 23 phase's transients within one card (without it k=23's prove
-# peaked at 94.9% of an 80 GB card, or ran out of memory) and costs k=20's
-# prove time (scripts/torch_rest_forms.py; PERF.md §6, PR 12).  Polys per
+# peaked at 94.9% of an 80 GB card) and costs k=20's prove time
+# (scripts/torch_rest_forms.py; PERF.md §6).  Polys per
 # evaluation stack on the large path (an evaluation's halving adds take
-# ~8x its stack); the field-ordered permuted lookup pairs one lookup at
-# a time (the sort's int64 keys one lookup wide).
+# ~8x its stack).
 _EVAL_STACK = (12, 4)
-_STREAMED_PAIRS = (False, True)
-HOST_REST_FORMS = ("_EVAL_STACK", "_STREAMED_PAIRS")
+HOST_REST_FORMS = ("_EVAL_STACK",)
+# The field-ordered permuted lookup pairs are sorted batched over the L
+# lookups while the sort's int64 key words (8 a row of each lookup's 2u
+# merged input and table rows) take at most this many bytes, and one
+# lookup at a time beyond it (``streamed_pairs``).  Beside the keys the
+# batched sort holds their gathered copy and its argsort temporaries: at
+# k=22 with 17 lookups (8.5 GiB of keys) it ran out of an 80 GB card; one
+# lookup at a time costs k=20 prove time (PERF.md §6).  Tests lower it.
+PAIR_SORT_MAX_BYTES = 6 << 30
+# From this k, below host rest, a prove on a card first builds the per-k
+# tables its opening reads (``_Phases.warm_tables``: once per pk and
+# opening), before its first transient, and hands the caching allocator's
+# free segments back to the card as it starts and as it ends: so every
+# prove starts from the segments of what outlives it (the pk, the SRS,
+# the tables, the caller's witness) and allocates the same way.  Its
+# stacks of tens of GB among transients of every size otherwise fragment
+# the cache: at k=22 the second prove in one process could not place its
+# 27.25 GiB quotient buffer, with the release alone (tables built among
+# the first prove's transients held 16-25 GiB in pieces) and with the
+# tables alone (the next witness split the cached segments; PERF.md §6).
+# Below it nothing fragments; from host rest on, the processes that
+# prove run the allocator with expandable segments (backend/rest.py).
+RELEASE_CACHE_MIN_K = 22
 # the spans that split a prove (the root span "prove") into its phases,
 # each closed right after the Fiat-Shamir challenges that end it: advice
 # at theta, the permuted lookup pairs at beta and gamma, the grand
@@ -107,6 +130,21 @@ HOST_REST_FORMS = ("_EVAL_STACK", "_STREAMED_PAIRS")
 # GWC's witnesses (gwc_open) or IPA's opening (ipa_open) at the end
 PHASE_SPANS = ("advice", "lookup_permuted", "grand_products", "quotient", "evals",
                "shplonk_h", "shplonk_l", "gwc_open", "ipa_open")
+
+
+def _releases_cache(pk: ProvingKey) -> bool:
+    """Whether a prove on ``pk`` warms its tables and releases the cache
+    (``RELEASE_CACHE_MIN_K``)."""
+    k = pk.vk.k
+    return (k >= RELEASE_CACHE_MIN_K and not rest.on_host(k)
+            and pk.device.type == "cuda")
+
+
+def streamed_pairs(n: int, lookups: int) -> bool:
+    """Whether the field-ordered permuted pairs of ``lookups`` lookups
+    over n rows are built one lookup at a time (``_Phases.
+    _permuted_pairs_streamed``) rather than in one batched sort."""
+    return lookups * 2 * n * 8 * 8 > PAIR_SORT_MAX_BYTES
 
 
 def _device_algebra(device):
@@ -315,6 +353,7 @@ class _Phases:
         self._terms_consts = self.encode(list(self.terms.consts)).reshape(-1, LIMBS)
         self._static_evals = {}          # sub-coset s -> (S*n, 16)
         self._packed_tables = {}         # lookup -> packed table sort
+        self._warmed = set()             # openings whose tables are built
         self._delta_pows = F.limbs(
             FR.host_powers(PERM.delta(), len(cs.perm_columns)), self.dev)
         self.shp_sets = PROTO.rotation_sets(PROTO.open_queries(cs))
@@ -413,22 +452,23 @@ class _Phases:
                      lookup_sort: str):
         u, L = self.usable, self.n_lk
         Ctx = self._column_ctx(all_fld, theta_m)
-        if lookup_sort == "field" and _STREAMED_PAIRS[self.host_rest()]:
+        if lookup_sort == "field" and streamed_pairs(self.n, L):
             a_prime, s_prime = self._permuted_pairs_streamed(Ctx, bl_a, bl_s)
         elif lookup_sort == "field":
-            a_us = torch.cat([PROTO.compressed_input(Ctx, lk)[:u]
-                              for lk in self.cs.lookups])
-            s_us = torch.cat([PROTO.compressed_table(Ctx, lk)[:u]
-                              for lk in self.cs.lookups])
-            a_ord, t_perm = LK.permuted_indices_field_many(
-                F.from_mont(FR, a_us), F.from_mont(FR, s_us), L, u)
-            rowu = torch.arange(L, device=self.dev)[:, None] * u
-            a_pr = a_us[(a_ord + rowu).reshape(-1)]
-            s_pr = s_us[(t_perm + rowu).reshape(-1)]
-            a_prime = torch.cat([x for l in range(L)
-                                 for x in (a_pr[l * u:(l + 1) * u], bl_a[l])])
-            s_prime = torch.cat([x for l in range(L)
-                                 for x in (s_pr[l * u:(l + 1) * u], bl_s[l])])
+            with timers.span("lookup.pairs", streamed=0, lookups=L, rows=u):
+                a_us = torch.cat([PROTO.compressed_input(Ctx, lk)[:u]
+                                  for lk in self.cs.lookups])
+                s_us = torch.cat([PROTO.compressed_table(Ctx, lk)[:u]
+                                  for lk in self.cs.lookups])
+                a_ord, t_perm = LK.permuted_indices_field_many(
+                    F.from_mont(FR, a_us), F.from_mont(FR, s_us), L, u)
+                rowu = torch.arange(L, device=self.dev)[:, None] * u
+                a_pr = a_us[(a_ord + rowu).reshape(-1)]
+                s_pr = s_us[(t_perm + rowu).reshape(-1)]
+                a_prime = torch.cat([x for l in range(L)
+                                     for x in (a_pr[l * u:(l + 1) * u], bl_a[l])])
+                s_prime = torch.cat([x for l in range(L)
+                                     for x in (s_pr[l * u:(l + 1) * u], bl_s[l])])
         else:
             def col_int(col, rot):
                 v = values[col].to(torch.int64)
@@ -455,21 +495,24 @@ class _Phases:
         """The field-ordered permuted pairs one lookup at a time (its
         compressed columns and its sort's int64 keys are the only ones
         live), into preallocated (L*n, 16) stacks: equal to the batched
-        ``permuted_indices_field_many`` rows."""
+        ``permuted_indices_field_many`` rows.  The form of the proofs
+        whose batched sort would not fit (``streamed_pairs``); one
+        ``lookup.pairs`` span a lookup."""
         n, u = self.n, self.usable
         a_prime = torch.empty((self.n_lk * n, LIMBS), dtype=torch.int32,
                               device=self.dev)
         s_prime = torch.empty_like(a_prime)
         for li, lk in enumerate(self.cs.lookups):
-            a_u = PROTO.compressed_input(Ctx, lk)[:u]
-            s_u = PROTO.compressed_table(Ctx, lk)[:u]
-            a_ord, t_perm = LK.permuted_indices_field(
-                F.from_mont(FR, a_u), F.from_mont(FR, s_u), u)
-            a_prime[li * n:li * n + u] = a_u[a_ord]
-            a_prime[li * n + u:(li + 1) * n] = bl_a[li]
-            s_prime[li * n:li * n + u] = s_u[t_perm]
-            s_prime[li * n + u:(li + 1) * n] = bl_s[li]
-            del a_u, s_u, a_ord, t_perm
+            with timers.span("lookup.pairs", streamed=1, lookups=1, rows=u):
+                a_u = PROTO.compressed_input(Ctx, lk)[:u]
+                s_u = PROTO.compressed_table(Ctx, lk)[:u]
+                a_ord, t_perm = LK.permuted_indices_field(
+                    F.from_mont(FR, a_u), F.from_mont(FR, s_u), u)
+                a_prime[li * n:li * n + u] = a_u[a_ord]
+                a_prime[li * n + u:(li + 1) * n] = bl_a[li]
+                s_prime[li * n:li * n + u] = s_u[t_perm]
+                s_prime[li * n + u:(li + 1) * n] = bl_s[li]
+                del a_u, s_u, a_ord, t_perm
         return a_prime, s_prime
 
     # -- phase 3: grand products -------------------------------------------
@@ -513,6 +556,33 @@ class _Phases:
     def large(self) -> bool:
         """Whether this pk's proves take the sliced k >= 19 path."""
         return self.k >= _LARGE_MIN_K
+
+    def warm_tables(self, multiopen: str = "shplonk"):
+        """Build the per-k device tables that a prove opened by
+        ``multiopen`` reads and would otherwise build on first use among
+        its transients: the sub-coset shifts and the quotient finish's
+        split tables, the permutation's labels, SHPLONK's split tables
+        (SHPLONK and IPA), the coset points (SHPLONK and GWC), and the
+        transforms' shifts and twiddles (one zero poly forward and back).
+        Once per opening."""
+        if multiopen in self._warmed:
+            return
+        k, dev = self.k, self.dev
+        if self.chunks:
+            PERM._label_tables(k, len(self.cs.perm_columns), dev)
+        for s in range(self.ratio):
+            _subcoset_tables(k, self.ext_k, s, dev)
+        _finish_split_tables(k, self.ext_k, self.d, dev)
+        if multiopen != "gwc":
+            _shplonk_h_tables(k, dev)
+        if multiopen != "ipa":
+            _coset_points(k, dev)
+        self.dom.omega_powers(dev)
+        zero = torch.zeros((self.n, LIMBS), dtype=torch.int32, device=dev)
+        for inverse in (False, True):
+            P._shift_powers(k, inverse, dev)
+            ntt_many(self.dom, zero, 1, inverse=inverse)
+        self._warmed.add(multiopen)
 
     def evals_sliced(self, keys, coeffs_fn, shift_pows, B: int = 8, out=None):
         """Sub-coset NTT of the polys ``keys`` (coefficients from
@@ -882,10 +952,14 @@ def prove(pk: ProvingKey, values, instances=None, seed=None,
     IPA on a mesh shards the commitments before
     the opening and runs the opening's rounds on each rank's device, as
     the reference does."""
-    with timers.span("prove", k=pk.vk.k, multiopen=multiopen), \
-            timers.Steps() as phase:
-        return _prove(phase, pk, values, instances, seed, mesh, mesh_axis,
-                      multiopen, lookup_sort, checkpoint_dir)
+    try:
+        with timers.span("prove", k=pk.vk.k, multiopen=multiopen), \
+                timers.Steps() as phase:
+            return _prove(phase, pk, values, instances, seed, mesh, mesh_axis,
+                          multiopen, lookup_sort, checkpoint_dir)
+    finally:
+        if _releases_cache(pk):
+            torch.cuda.empty_cache()
 
 
 def _prove(phase, pk, values, instances, seed, mesh, mesh_axis, multiopen,
@@ -908,6 +982,9 @@ def _prove(phase, pk, values, instances, seed, mesh, mesh_axis, multiopen,
             _check_lookup_packable(pk.layout, lk)
 
     ph = _get_phases(pk, mesh)
+    if _releases_cache(pk):
+        ph.warm_tables(multiopen)
+        torch.cuda.empty_cache()
     vk, cs, layout = pk.vk, pk.vk.cs, pk.layout
     dev = ph.dev
     n, usable, bf = ph.n, ph.usable, ph.bf

@@ -15,14 +15,23 @@ a reader copies back the polys it takes, when it takes them
 operation on the data runs on the card, and the bytes of a proof do not
 depend on where its stacks waited.
 
+Host rest is the k = 23 form only: a k = 22 proof keeps its stacks on
+the card (AES-128 at 12,335 blocks peaks at 73.4 GB of the 85 GB card)
+and fits by the forms the prover picks by size (its permuted lookup pairs
+one lookup at a time, ``prover.streamed_pairs``).
+
 A k = 23 prove allocates stacks of up to 43.5 GB among transients of
 every size, and the caching allocator's fixed segments fragment: a
 second prove in one process failed on an 18 GB stack with 23 GB free in
 pieces.  The process that runs such proves starts with
 ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` (the ``prove``
 command line and ``scripts/torch_prove_steady.py`` from this k on,
-``chip_smoke.py`` always); the prover leaves the allocator as it finds
-it.
+``chip_smoke.py`` always).  The prover changes no allocator setting.
+Below this threshold, from ``prover.RELEASE_CACHE_MIN_K`` (22), it
+builds its tables before its first transient and empties the cache as
+each prove starts and ends, which is what keeps a k = 22 process's
+proves from fragmenting it; from the threshold on it does neither, and
+expandable segments alone keep a process's k = 23 proves whole.
 
 On a CPU device the stacks are in host memory already: ``park`` hands
 the tensor back.  Tests lower the threshold to hold the parking path

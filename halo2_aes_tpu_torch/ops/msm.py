@@ -32,6 +32,7 @@ import torch
 from halo2_aes_tpu_torch.ops import cuda_msm as CM
 from halo2_aes_tpu_torch.ops import curve as CV
 from halo2_aes_tpu_torch.ops import field as F
+from halo2_aes_tpu_torch.utils import timers
 
 SCALAR_BITS = CM.SCALAR_BITS
 
@@ -202,16 +203,19 @@ def msm(points, scalars, c: int | None = None, tables=None):
     points: (x, y) affine Montgomery limb tensors, each (n, 16);
     scalars: (n, 16) PLAIN Fr limbs; tables: optional ``build_tables``
     output: windows come pre-scaled, one bucket set, no Horner fold.
-    Without tables one set a window and the Horner doublings."""
+    Without tables one set a window and the Horner doublings, under one
+    ``msm.horner`` span (utils/timers.py: ``windows``, ``c``)."""
     n = points[0].shape[0]
     if c is None:
         c = default_window(n)
     s = CM.bucket_sums(points, scalars, 1, c, tables)
     if tables is not None:
         return tuple(t[0] for t in s)
-    acc = CV.identity(device=points[0].device)
-    for w in range(s[0].shape[0] - 1, -1, -1):
-        acc = CV.add(CV.double_n(acc, c), (s[0][w], s[1][w], s[2][w]))
+    W = s[0].shape[0]
+    with timers.span("msm.horner", windows=W, c=c):
+        acc = CV.identity(device=points[0].device)
+        for w in range(W - 1, -1, -1):
+            acc = CV.add(CV.double_n(acc, c), (s[0][w], s[1][w], s[2][w]))
     return acc
 
 

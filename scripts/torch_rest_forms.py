@@ -8,8 +8,9 @@ from it, one form at a time, on one device.
 ``backend/prover.HOST_REST_FORMS`` names the forms that are a pair
 (below ``rest.HOST_REST_MIN_K``, from it): the polys per evaluation
 stack on the large path (k >= 19; below it its swap changes nothing and
-times the noise), the permuted lookup pairs one lookup at a time.  This script compiles the
-AES-128 circuit at K, sets up the SRS and keys, builds the witness and
+times the noise); the permuted lookup pairs' form is picked by the
+proof's size (``prover.streamed_pairs``) and is not swapped here.  This
+script compiles the AES-128 circuit at K, sets up the SRS and keys, builds the witness and
 proves once (cold), then proves R rounds in turns: the default forms,
 then each form swapped for its other side alone (below k = 23: the
 k >= 23 form; from it: the smaller k's form), each with its seconds,

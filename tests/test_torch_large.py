@@ -12,8 +12,11 @@ every golden proof (toys, GWC, packed) comes out byte-identical through
 the sliced path and verifies.  So it does with the k >= 23 switch
 lowered (idle stacks resting in host memory, however the pk was made,
 and the k >= 23 forms of ``prover.HOST_REST_FORMS``) and with the NTT's
-row cap lowered (three and more passes a transform); the term program
-launched over row chunks and the permuted pairs built one lookup at a time equal
+row cap lowered (three and more passes a transform), and with the pair
+sort's limit lowered (the permuted pairs one lookup at a time, the form
+``prover.streamed_pairs`` picks by the proof's size: from k=22 for
+AES-128) and host rest left as it is; the term program launched over
+row chunks and the permuted pairs built one lookup at a time equal
 their whole forms; and prove takes every k the reference takes and
 refuses, before any work, the k whose extended domain the field cannot
 transform."""
@@ -22,6 +25,7 @@ import dataclasses
 import gc
 import json
 import pathlib
+import types
 import weakref
 
 import jax.numpy as jnp
@@ -423,8 +427,9 @@ def test_quotient_row_chunks(phases, chunks):
 
 
 def test_permuted_pairs_streamed(phases, monkeypatch):
-    """The permuted pairs built one lookup at a time (the k >= 23 form)
-    equal the batched build, and the reference's lookup phase."""
+    """The permuted pairs built one lookup at a time (the form of the
+    proofs whose batched sort would not fit: k >= 22 for AES-128) equal
+    the batched build, and the reference's lookup phase."""
     ph, ref = phases
     rng = np.random.default_rng(37)
     values = TOYS["tagged"][0]()[1]
@@ -436,7 +441,7 @@ def test_permuted_pairs_streamed(phases, monkeypatch):
     args = (torch.as_tensor(values.astype(np.int32)), all_fld, _t(theta),
             _t(bl[0]), _t(bl[1]), "field")
     batched = ph.lookup_phase(*args)
-    monkeypatch.setattr(prover, "_STREAMED_PAIRS", (True, True))
+    monkeypatch.setattr(prover, "PAIR_SORT_MAX_BYTES", 0)
     streamed = ph.lookup_phase(*args)
     for a, b in zip(batched, streamed):
         assert torch.equal(a, b)
@@ -444,6 +449,71 @@ def test_permuted_pairs_streamed(phases, monkeypatch):
                                jnp.asarray(F.to_numpy(all_fld)), jnp.asarray(theta),
                                jnp.asarray(bl[0]), jnp.asarray(bl[1]))
     assert _same(streamed[0], ref_out[0]) and _same(streamed[2], ref_out[2])
+
+
+@pytest.mark.parametrize("k, streamed", [(17, False), (18, False), (20, False),
+                                         (21, False), (22, True), (23, True)])
+def test_pair_form_follows_the_proofs_size(k, streamed):
+    """AES-128's 17 lookups (upstream's layout, 4 sets): the batched pair
+    sort up to k=21, one lookup at a time from k=22, whatever the
+    host-rest threshold; a circuit of few lookups keeps the batched sort
+    at k=22.  A prove on a card warms its tables and releases the cache
+    at k=22 alone (from k=23 its process runs expandable segments); on
+    the CPU never."""
+    assert prover.streamed_pairs(1 << k, 17) is streamed
+    assert not prover.streamed_pairs(1 << 22, 4)
+    assert rest.on_host(k) is (k >= 23)
+    for dev, releases in (("cuda", k == 22), ("cpu", False)):
+        pk = types.SimpleNamespace(vk=types.SimpleNamespace(k=k),
+                                   device=torch.device(dev))
+        assert prover._releases_cache(pk) is releases
+
+
+@pytest.mark.parametrize("name", ["toy", "tagged", "toy_gwc"])
+def test_streamed_pairs_prove_equals_golden(name, srs_pair, monkeypatch):
+    """The pair sort's limit lowered below the toy's (every lookup's pairs
+    built one at a time) on the sliced path, host rest left at its
+    threshold, as a k=22 prove runs: the golden bytes."""
+    toy, opts = GOLDEN_PROOFS[name]
+    build, seed, _ = TOYS[toy]
+    layout, values = build()
+    monkeypatch.setattr(prover, "PAIR_SORT_MAX_BYTES", 0)
+    monkeypatch.setattr(prover, "_LARGE_MIN_K", K)
+    pk = keygen.keygen(layout, srs_pair[0])
+    ph = prover._get_phases(pk)
+    assert prover.streamed_pairs(ph.n, ph.n_lk) and ph.large()
+    assert not ph.host_rest()
+    assert prover.prove(pk, values, seed=seed, **opts).hex() == GOLDEN[name]["proof"]
+
+
+@pytest.mark.parametrize("name", ["tagged", "toy_gwc"])
+def test_warm_tables_cover_a_large_prove(name, srs_pair, monkeypatch):
+    """``_Phases.warm_tables`` for the prove's opening (which a k >= 22
+    prove on a card runs once, before its first transient) builds every
+    cached device table a sliced prove with that opening reads: from
+    cleared caches, the prove after it builds none; a second call builds
+    nothing."""
+    from halo2_aes_tpu_torch.backend import permutation, poly
+
+    toy, opts = GOLDEN_PROOFS[name]
+    build, seed, _ = TOYS[toy]
+    layout, values = build()
+    monkeypatch.setattr(prover, "_LARGE_MIN_K", K)
+    pk = keygen.keygen(layout, srs_pair[0])
+    caches = [prover._subcoset_tables, prover._finish_split_tables,
+              prover._shplonk_h_tables, prover._coset_points, poly._shift_powers,
+              poly._vanishing_inv_table, permutation._label_tables, N._mid_table,
+              N._powers_table, N._dev_limbs, N._dev_index]
+    for fn in caches:
+        fn.cache_clear()
+    ph = prover._get_phases(pk)
+    ph.warm_tables(opts.get("multiopen", "shplonk"))
+    warmed = [fn.cache_info().currsize for fn in caches]
+    misses = [fn.cache_info().misses for fn in caches]
+    ph.warm_tables(opts.get("multiopen", "shplonk"))
+    assert [fn.cache_info().misses for fn in caches] == misses
+    assert prover.prove(pk, values, seed=seed, **opts).hex() == GOLDEN[name]["proof"]
+    assert [fn.cache_info().currsize for fn in caches] == warmed
 
 
 @pytest.mark.parametrize("made_by", ["keygen", "pk_from_numpy"])

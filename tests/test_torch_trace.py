@@ -5,6 +5,7 @@ order, whose ``ntt`` and ``commit`` spans carry the shapes of their
 calls, and whose host times are the profiler's; the benchmark's span
 readers read it."""
 
+import dataclasses
 import math
 import pathlib
 
@@ -171,6 +172,71 @@ def test_benchmark_readers_read_the_toy(toy):
     assert got["ntt_many_roofline.in_proof"] <= 100
     assert got["quotient_terms_roofline"] <= 100
     assert got["grand_products_roofline"] <= 100
+
+
+K22_READERS = ["span_s.lookup_pairs", "commit_roofline.tableless"]
+
+
+@pytest.fixture(scope="module")
+def k22_forms():
+    """(pk, prove tree) of a toy prove recorded with the k=22 forms forced
+    (the permuted pairs one lookup at a time, the device MSM without
+    window tables, the sliced path) and host rest left as it is."""
+    from halo2_aes_tpu_torch.ops import msm as MSM
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(prover, "PAIR_SORT_MAX_BYTES", 0)
+        mp.setattr(prover, "_LARGE_MIN_K", K)
+        mp.setattr(MSM, "TABLELESS_MIN_N", 1 << K)
+        mp.setattr(keygen, "HOST_MSM_MAX_N", 0)
+        layout, values = toy_circuit()
+        pk = keygen.keygen(layout, srs.setup(K, "cpu", cache_dir=None))
+        return pk, _recorded(pk, values)[1]
+
+
+def _read(names):
+    ctx = type("Ctx", (), {"log": staticmethod(lambda m: None)})()
+    return {name: harness.load_reader(name, str(REPO / "benchmark")).read(ctx)
+            for name in names}
+
+
+@pytest.mark.parametrize("tree", ["k22_forms", "without_the_spans"])
+def test_k22_forms_record_their_spans(tree, k22_forms, monkeypatch):
+    """With the k=22 forms forced on the toy: a ``lookup.pairs`` span a
+    lookup (``streamed`` 1) in the lookup phase, every ``commit`` span
+    ``tables`` 0 and one ``msm.horner`` span a commitment's fold (c, W
+    as the window gives them); the two readers of those spans give a
+    finite positive number, and None on the same tree as a program
+    without these spans and attributes records it."""
+    from halo2_aes_tpu_torch.ops import cuda_msm as CM
+    from halo2_aes_tpu_torch.ops import msm as MSM
+
+    pk, rec = k22_forms
+    pairs = [r for r in rec.spans if r.name == "lookup.pairs"]
+    commits = [r for r in rec.spans if r.name == "commit"]
+    horner = [r for r in rec.spans if r.name == "msm.horner"]
+    c = MSM.default_window(1 << K)
+    phase = next(r for r in rec.spans if r.name == "lookup_permuted")
+    assert len(pairs) == len(pk.vk.cs.lookups)
+    assert all(r.parent == phase.id for r in pairs)
+    assert all(r.attrs == {"streamed": 1, "lookups": 1, "rows": pk.vk.usable}
+               for r in pairs)
+    assert commits and all(r.attrs["tables"] == 0 for r in commits)
+    assert len(horner) >= sum(r.attrs["polys"] for r in commits)
+    assert all(r.attrs == {"windows": CM.windows(c), "c": c} for r in horner)
+    if tree == "without_the_spans":
+        stripped = timers.Tree(rec.root, [
+            dataclasses.replace(r, attrs={k: v for k, v in r.attrs.items()
+                                          if k != "tables"})
+            for r in rec.spans if r.name not in ("lookup.pairs", "msm.horner")],
+            rec.before)
+        monkeypatch.setattr(timers, "last_tree", lambda name="prove": stripped)
+        assert _read(K22_READERS) == dict.fromkeys(K22_READERS)
+        return
+    got = _read(K22_READERS)
+    assert all(isinstance(v, float) and math.isfinite(v) and v > 0
+               for v in got.values()), got
+    assert got["commit_roofline.tableless"] <= 100
 
 
 def test_phase_timers_open_spans_and_table():
