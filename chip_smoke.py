@@ -17,7 +17,10 @@ Phases, each printing one JSON line as it ends:
                 C++ library (the verifier's G1 MSM and pairing product),
                 which must pass its self-test and be the route in force
   2 kernels     each kernel and entry against its plain PyTorch version,
-                bit-exact, on card tensors at its path's shapes, with times
+                bit-exact, on card tensors at its path's shapes (K1 on
+                2^20 random pairs of Fr and of Fq led by every ordered
+                pair of the edge operands: 0, 1, p-1, p-2, R, R^2 mod p
+                and top words at p's), with times
                 and the card's bound for the same work (K1-K3 also at the
                 k=20 prove's shapes, where one ntt_many must launch K2
                 twice, K1 never and no PyTorch kernel; P1 also at the
@@ -299,17 +302,16 @@ def phase_kernels(dev) -> dict:
     def err(a, b):
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
-    # K1: 2^20 random pairs per field plus the edges 0, 1, p-1, R mod p
+    # K1: 2^20 random pairs per field, the first rows every ordered pair
+    # of the edge operands
     k1 = {"errors": {}, "ms": 0.0, "plain_ms": 0.0}
     for spec in (F.FR, F.FQ):
         a = _random_field(spec, 1 << 20, rng, dev)
         b = _random_field(spec, 1 << 20, rng, dev)
-        edges = F.limbs(F.ints_to_limbs_fast(
-            [0, 1, spec.modulus - 1, spec.r_mod_p]), dev)
-        a[:4] = edges
-        b[:4] = edges.flip(0)
-        a[4:8] = edges
-        b[4:8] = edges
+        edges = F.limbs(F.ints_to_limbs_fast(cuda_field.edge_operands(spec)), dev)
+        e2 = edges.shape[0] ** 2
+        a[:e2] = edges.repeat_interleave(edges.shape[0], 0)
+        b[:e2] = edges.repeat(edges.shape[0], 1)
         out = cuda_field.mont_mul(spec, a, b)
         ref = cuda_field.mont_mul_plain(spec, a, b)
         e = err(out, ref)

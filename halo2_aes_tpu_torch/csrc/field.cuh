@@ -1,6 +1,7 @@
 // 256-bit prime-field arithmetic for BN254 Fr / Fq on 8 x 32-bit words.
 //
-// Shared by mont_mul.cu (K1), ntt.cu (K2) and curve_add.cu (K3).  An
+// Shared by every hand kernel: mont_mul.cu (K1), ntt.cu (K2), curve.cuh
+// (K3 and K7), quotient_terms.cu (K4) and grand_product.cu (K6).  An
 // element is 8 little-endian 32-bit words in Montgomery form with
 // R = 2^256, canonical in [0, p).  In device memory elements keep the
 // reference layout: 16 int32 limbs of 16 bits (64 bytes), loaded and
@@ -10,11 +11,12 @@
 // (64 lanes per SM and clock): a CIOS product is 128 32x32->64
 // multiply-adds.  Every carry chain below is one PTX `asm` statement, so
 // the carry flag never leaves it: the add/sub chains are add.cc/addc.cc
-// (sub.cc/subc.cc), and a multiply-add row is two chains of
-// mad.lo.cc / madc.hi.cc pairs on the same multiplicands (products at
-// even, then at odd word offsets), which ptxas emits as one wide
-// multiply-add with carry per pair instead of a wide multiply followed
-// by 64-bit adds.
+// (sub.cc/subc.cc), and a multiply-add chain is mad.lo.cc / madc.hi.cc
+// pairs on the same multiplicands, which ptxas emits as one wide
+// multiply-add with carry per pair.  A wide multiply-add writes and reads
+// an aligned register pair, so the product keeps its sum in two
+// accumulators whose pairs never change (fe_mont_mul): one for the
+// products of the even words of a factor, one for those of the odd words.
 #pragma once
 
 #include <cstdint>
@@ -85,23 +87,64 @@ __device__ __forceinline__ void fe_reduce_once(uint32_t r[8], const uint32_t t[8
   r[7] = take ? d7 : t[7];
 }
 
-// t[0..9] += a[0..7] * b (the sum must fit 10 words): the products at
-// even word offsets in one carry chain, those at odd offsets in a second
-__device__ __forceinline__ void fe_mad_row(uint32_t t[10], const uint32_t a[8],
-                                           uint32_t b) {
-  asm("mad.lo.cc.u32 %0, %10, %14, %0;\n\t"
-      "madc.hi.cc.u32 %1, %10, %14, %1;\n\t"
-      "madc.lo.cc.u32 %2, %11, %14, %2;\n\t"
-      "madc.hi.cc.u32 %3, %11, %14, %3;\n\t"
-      "madc.lo.cc.u32 %4, %12, %14, %4;\n\t"
-      "madc.hi.cc.u32 %5, %12, %14, %5;\n\t"
-      "madc.lo.cc.u32 %6, %13, %14, %6;\n\t"
-      "madc.hi.cc.u32 %7, %13, %14, %7;\n\t"
-      "addc.cc.u32 %8, %8, 0;\n\t"
-      "addc.u32 %9, %9, 0;"
-      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]),
-        "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
-      : "r"(a[0]), "r"(a[2]), "r"(a[4]), "r"(a[6]), "r"(b));
+// The CIOS Montgomery product keeps T, its running sum, in two arrays of
+// 8 words: T = e + o * 2^32, where e's word j sits at word offset j and
+// o's one word up.  A row adds a[2j] * b_i to e's pair (2j, 2j+1) and
+// a[2j+1] * b_i to o's pair (2j, 2j+1); the reduction adds p's even and
+// odd words times m_i the same way.  Each mad.lo.cc / madc.hi.cc pair
+// then writes one aligned register pair of its own array, the same pair
+// in every row, so ptxas needs no register moves to re-pair them.  The shift
+// by one word after each row costs no copies either: the arrays swap
+// roles, o (now at offsets 0..7) becoming the next row's e and e (its
+// word 0 reduced to 0) the next row's o, whose shift the next row's odd
+// chain folds into its destinations (it reads o[j + 2] and writes o[j],
+// as sppark's madc_n_rshift does).
+//
+// Headroom: with a, b < p, T < 2p after each shift (CIOS), so T < 2p 2^32
+// before it and o <= T div 2^32 < 2p < 2^255: the carries the chains drop
+// (out of o's top word) are zero, and so is the final sum's carry out of
+// word 7.  BN254's Fr and Fq are below 2^254; ops/_build.modulus_args
+// refuses a modulus from 2^254 on.  tests/test_torch_mont_schedule.py
+// replays these chains word for word and checks that every dropped carry
+// is 0.
+
+// the first row: e = a_even * b0, o = a_odd * b0 (no carries)
+__device__ __forceinline__ void fe_row_first(uint32_t e[8], uint32_t o[8],
+                                             const uint32_t a[8], uint32_t b0) {
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    const uint64_t ev = (uint64_t)a[j] * b0, od = (uint64_t)a[j + 1] * b0;
+    e[j] = (uint32_t)ev;
+    e[j + 1] = (uint32_t)(ev >> 32);
+    o[j] = (uint32_t)od;
+    o[j + 1] = (uint32_t)(od >> 32);
+  }
+}
+
+// a later row's shift and odd products.  e is the last row's o, o the
+// last row's e, whose word j the shift moves to offset j - 1 (o[0] == 0
+// leaves): e[0] += o[1], then o[j] = o[j + 2] + a_odd * b at offset
+// j + 1, the first carry entering o[0]; the carry out of o[7] is dropped
+__device__ __forceinline__ void fe_row_odd(uint32_t e[8], uint32_t o[8],
+                                           const uint32_t a[8], uint32_t b) {
+  asm("add.cc.u32 %0, %0, %2;\n\t"
+      "madc.lo.cc.u32 %1, %9, %13, %3;\n\t"
+      "madc.hi.cc.u32 %2, %9, %13, %4;\n\t"
+      "madc.lo.cc.u32 %3, %10, %13, %5;\n\t"
+      "madc.hi.cc.u32 %4, %10, %13, %6;\n\t"
+      "madc.lo.cc.u32 %5, %11, %13, %7;\n\t"
+      "madc.hi.cc.u32 %6, %11, %13, %8;\n\t"
+      "madc.lo.cc.u32 %7, %12, %13, 0;\n\t"
+      "madc.hi.u32 %8, %12, %13, 0;"
+      : "+r"(e[0]), "+r"(o[0]), "+r"(o[1]), "+r"(o[2]), "+r"(o[3]), "+r"(o[4]),
+        "+r"(o[5]), "+r"(o[6]), "+r"(o[7])
+      : "r"(a[1]), "r"(a[3]), "r"(a[5]), "r"(a[7]), "r"(b));
+}
+
+// acc += (x[0] + x[2] 2^64 + x[4] 2^128 + x[6] 2^192) * y on acc's pairs,
+// the carry out added to top
+__device__ __forceinline__ void fe_mad_pairs(uint32_t acc[8], uint32_t& top,
+                                             const uint32_t* x, uint32_t y) {
   asm("mad.lo.cc.u32 %0, %9, %13, %0;\n\t"
       "madc.hi.cc.u32 %1, %9, %13, %1;\n\t"
       "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
@@ -111,26 +154,72 @@ __device__ __forceinline__ void fe_mad_row(uint32_t t[10], const uint32_t a[8],
       "madc.lo.cc.u32 %6, %12, %13, %6;\n\t"
       "madc.hi.cc.u32 %7, %12, %13, %7;\n\t"
       "addc.u32 %8, %8, 0;"
-      : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
-        "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
-      : "r"(a[1]), "r"(a[3]), "r"(a[5]), "r"(a[7]), "r"(b));
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]), "+r"(acc[4]),
+        "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7]), "+r"(top)
+      : "r"(x[0]), "r"(x[2]), "r"(x[4]), "r"(x[6]), "r"(y));
 }
 
-// CIOS Montgomery product: r = a * b * 2^-256 mod p (a, b < p)
+// the same with the carry out of acc[7] dropped
+__device__ __forceinline__ void fe_mad_pairs_drop(uint32_t acc[8], const uint32_t* x,
+                                                  uint32_t y) {
+  asm("mad.lo.cc.u32 %0, %8, %12, %0;\n\t"
+      "madc.hi.cc.u32 %1, %8, %12, %1;\n\t"
+      "madc.lo.cc.u32 %2, %9, %12, %2;\n\t"
+      "madc.hi.cc.u32 %3, %9, %12, %3;\n\t"
+      "madc.lo.cc.u32 %4, %10, %12, %4;\n\t"
+      "madc.hi.cc.u32 %5, %10, %12, %5;\n\t"
+      "madc.lo.cc.u32 %6, %11, %12, %6;\n\t"
+      "madc.hi.u32 %7, %11, %12, %7;"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]), "+r"(acc[4]),
+        "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7])
+      : "r"(x[0]), "r"(x[2]), "r"(x[4]), "r"(x[6]), "r"(y));
+}
+
+// T += m_i * p with m_i = e[0] * n0 (o holds no word at offset 0), which
+// makes e[0] zero
+__device__ __forceinline__ void fe_row_reduce(uint32_t e[8], uint32_t o[8],
+                                              const Modulus& m) {
+  const uint32_t mi = e[0] * m.n0;
+  fe_mad_pairs_drop(o, m.p + 1, mi);
+  fe_mad_pairs(e, o[7], m.p, mi);
+}
+
+// one row b of a later word: the shift, a * b, the reduction
+__device__ __forceinline__ void fe_row(uint32_t e[8], uint32_t o[8],
+                                       const uint32_t a[8], uint32_t b,
+                                       const Modulus& m) {
+  fe_row_odd(e, o, a, b);
+  fe_mad_pairs(e, o[7], a, b);
+  fe_row_reduce(e, o, m);
+}
+
+// CIOS Montgomery product: r = a * b * 2^-256 mod p (a, b < p); r may
+// alias a or b.  The rows alternate x and y as e; after the last row y
+// sits at offsets 0..7 (y[0] == 0) and x at 1..8, so the shifted sum is
+// x + y[1..7]
 __device__ __forceinline__ void fe_mont_mul(uint32_t r[8], const uint32_t a[8],
                                             const uint32_t b[8], const Modulus& m) {
-  uint32_t t[10];
+  uint32_t x[8], y[8];
+  fe_row_first(x, y, a, b[0]);
+  fe_row_reduce(x, y, m);
 #pragma unroll
-  for (int j = 0; j < 10; ++j) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    fe_mad_row(t, a, b[i]);
-    fe_mad_row(t, m.p, t[0] * m.n0);  // now t[0] == 0: drop it
-#pragma unroll
-    for (int j = 0; j < 9; ++j) t[j] = t[j + 1];
-    t[9] = 0;
+  for (int i = 1; i < 8; i += 2) {
+    fe_row(y, x, a, b[i], m);
+    if (i + 1 < 8) fe_row(x, y, a, b[i + 1], m);
   }
-  fe_reduce_once(r, t, t[8], m);
+  asm("add.cc.u32 %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32 %7, %7, 0;"
+      : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]), "+r"(x[5]),
+        "+r"(x[6]), "+r"(x[7])
+      : "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]), "r"(y[5]), "r"(y[6]),
+        "r"(y[7]));
+  fe_reduce_once(r, x, 0, m);
 }
 
 __device__ __forceinline__ void fe_add(uint32_t r[8], const uint32_t a[8],

@@ -317,13 +317,16 @@ __device__ __forceinline__ void load_xy(uint32_t x[8], uint32_t y[8],
   fe_load(py + (int64_t)row * stride, y);
 }
 
-// Four blocks of 128 an SM (at most 128 registers a thread, a few spilled):
-// 16 warps, against 12 at the 168 registers the loop takes unbounded,
-// measured ~7% faster at the cell's shape.  The wrapper cuts the list into
-// one slice a resident thread (msm_accumulate_threads), so the threads
-// run as one wave; a partial last wave cost 14-24%.
+// Five blocks of 128 an SM (at most 102 registers a thread: 96, 200 bytes
+// spilled): 20 warps.  With field.cuh's two-accumulator product, five ran
+// 1% faster than four (128 registers, 32 bytes spilled) and 3-4% faster
+// than three (166 registers, none spilled) at both cells' shapes: 8
+// commitments over 2^20 points with tables, one over 2^22 without.  The
+// wrapper cuts the list into one slice a resident thread
+// (msm_accumulate_threads), so the threads run as one wave; a partial last
+// wave cost 14-24%.
 constexpr int ACC_THREADS = 128;
-constexpr int ACC_BLOCKS_SM = 4;
+constexpr int ACC_BLOCKS_SM = 5;
 
 // thread t sums list places [t * slice, (t + 1) * slice): a bucket that
 // lies inside the slice goes to bucket[g]; the slice's first bucket, where

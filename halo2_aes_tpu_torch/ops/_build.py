@@ -224,9 +224,17 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
 
 
+# csrc/field.cuh's product drops the carries out of its accumulators' top
+# words, which stay zero only for p below 2^254 (BN254's Fr and Fq are)
+MODULUS_LIMIT = 1 << 254
+
+
 @functools.lru_cache(maxsize=None)
 def modulus_args(modulus: int):
-    """(p as 8 little-endian u32 words in a ctypes array, -p^-1 mod 2^32)."""
+    """(p as 8 little-endian u32 words in a ctypes array, -p^-1 mod 2^32);
+    refuses a modulus from ``MODULUS_LIMIT`` on."""
+    if not 0 < modulus < MODULUS_LIMIT or modulus % 2 == 0:
+        raise ValueError(f"the kernels take an odd modulus below 2^254, not {modulus}")
     words = (ctypes.c_uint32 * 8)(*[(modulus >> (32 * i)) & 0xFFFFFFFF
                                     for i in range(8)])
     n0 = (-pow(modulus, -1, 1 << 32)) % (1 << 32)

@@ -61,6 +61,19 @@ def mont_mul_plain(spec: F.FieldSpec, a, b):
     return F._cond_sub_p(spec, r).to(torch.int32)
 
 
+def edge_operands(spec: F.FieldSpec) -> list:
+    """The product's edge operands, as ints: 0, 1, p-1, p-2, R mod p,
+    R^2 mod p, and values with the largest top word below p (p's top word
+    over zero words, over half of p's lower words, and one less over
+    all-ones words).  The card's smoke holds K1 to its plain version on
+    every ordered pair of them; the CPU tests replay the kernel's carry
+    schedule on them."""
+    p = spec.modulus
+    top, low = p >> 224, p & ((1 << 224) - 1)
+    return [0, 1, p - 1, p - 2, spec.r_mod_p, spec.r2_mod_p, top << 224,
+            (top << 224) | (low >> 1), ((top - 1) << 224) | ((1 << 224) - 1)]
+
+
 def _rows_mod(x, out_shape) -> tuple:
     """(contiguous operand, its row count) for a kernel that reads row
     i of the output's operand at x[i % rows]; materialises any other

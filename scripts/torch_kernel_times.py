@@ -4,8 +4,8 @@ shapes of a k=20 prove, on one CUDA card.
 
   python3 scripts/torch_kernel_times.py [--tree DIR] [--lg 20] [--count 45]
       [--polys 8] [--quotient-k 20,23] [--grand-k 20] [--msm-lg 20]
-      [--only-msm] [--split-lg 23] [--only-splits]
-      [--out FILE]
+      [--no-msm-plain] [--tableless-lg 22] [--only-msm] [--split-lg 23]
+      [--only-splits] [--out FILE]
 
 ``--tree`` imports ``halo2_aes_tpu_torch`` from another checkout (default:
 this one), so two trees can be timed in turns on one card in one run;
@@ -41,8 +41,14 @@ else through ``cuda_ntt.ntt_fused``).  CUDA-event medians
             each step, then ``polys`` commitments over 2^L points with the
             window tables, K7 against the sorted-prefix tree (affine
             sums equal, times, peaks), K7's launches, each K7 kernel's
-            device time and the bound of the MSM's work; ``--only-msm``
-            times nothing after it
+            device time and the bound of the MSM's work (``--no-msm-plain``
+            leaves out the plain chain at that shape, ~60 s); with
+            ``--tableless-lg L``, one commitment over 2^L points without
+            tables (the k=22 cell's form: a bucket set a window, K3's
+            Horner doublings; the 2^20 SRS's points repeated), its time,
+            each kernel's device time and the bound of
+            ``commit_roofline.tableless``; ``--only-msm`` times nothing
+            after them
   splits    with ``--split-lg L`` (where the tree has ``ops/ntt.ROW_CAP``):
             count transforms of 2^L with a coset shift, and inverse, at
             each row cap that gives another split of L (rows of at most
@@ -484,7 +490,7 @@ def msm_buckets_plain(scal, tables, polys: int, n: int, c: int, slice: int) -> d
     return rec
 
 
-def msm_buckets_times(dev, lg: int, polys: int) -> dict:
+def msm_buckets_times(dev, lg: int, polys: int, plain: bool = True) -> dict:
     """``polys`` commitments of random scalars over 2^lg SRS points with
     the window tables (the prover's ``msm_many`` shape): K7's affine sums
     equal the sorted-prefix tree's, and each of K7's steps its plain
@@ -544,7 +550,9 @@ def msm_buckets_times(dev, lg: int, polys: int) -> dict:
            "bound_by": "bytes" if bound_by == "memory" else "operations",
            "slice": CM.slice_len(polys * CM.windows(c) * n, polys << c, dev)}
     rec["share_of_bound"] = rec["bound_ms"] / rec["k7_ms"]
-    rec["plain"] = msm_buckets_plain(scal, srs._msm_tables, polys, n, c, rec["slice"])
+    if plain:
+        rec["plain"] = msm_buckets_plain(scal, srs._msm_tables, polys, n, c,
+                                         rec["slice"])
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         k7()
         torch.cuda.synchronize()
@@ -553,6 +561,55 @@ def msm_buckets_times(dev, lg: int, polys: int) -> dict:
                                                       getattr(e, "cuda_time_total", 0))}
                          for e in prof.key_averages()}
     del scal
+    torch.cuda.empty_cache()
+    return rec
+
+
+def msm_tableless_times(dev, lg: int) -> dict:
+    """One commitment of random scalars over 2^lg points without window
+    tables (``msm.msm``: a bucket set a window, then K3's Horner
+    doublings), the 2^20 SRS's points repeated: CUDA-event median, each
+    kernel's device time from torch.profiler and the bound of the work
+    ``commit_roofline.tableless`` counts."""
+    import importlib.util
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import roofline
+    from halo2_aes_tpu_torch.backend import srs as SRS
+    from halo2_aes_tpu_torch.ops import field as F
+    from halo2_aes_tpu_torch.ops import msm as MSM
+    from halo2_aes_tpu_torch.ops.timing import time_ms
+
+    spec = importlib.util.spec_from_file_location(
+        "commit_roofline_tableless",
+        os.path.join(REPO, "benchmark", "metrics", "commit_roofline.tableless.py"))
+    metric = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(metric)
+    n = 1 << lg
+    srs = SRS.setup(20, dev)
+    reps = -(-n // srs.g1_x.shape[0])
+    pts = tuple(t.repeat(reps, 1)[:n].contiguous() for t in (srs.g1_x, srs.g1_y))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(lg)
+    scal = torch.randint(0, 1 << 16, (n, F.LIMBS), generator=gen, device=dev,
+                         dtype=torch.int32)
+    scal[:, -1] %= int(F.FR.p_limbs[-1])
+    bound_s, bound_by = roofline.least_seconds(*metric.work(1, n))
+    rec = {"lg": lg, "window": MSM.default_window(n),
+           "ms": time_ms(lambda: MSM.msm(pts, scal), 1, 5),
+           "bound_ms": bound_s * 1e3,
+           "bound_by": "bytes" if bound_by == "memory" else "operations"}
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        MSM.msm(pts, scal)
+        torch.cuda.synchronize()
+    rec["kernels_us"] = {e.key: {"calls": e.count,
+                                 "device_us": getattr(e, "device_time_total",
+                                                      getattr(e, "cuda_time_total", 0))}
+                         for e in prof.key_averages()}
+    del pts, scal
     torch.cuda.empty_cache()
     return rec
 
@@ -567,6 +624,8 @@ def main() -> int:
     ap.add_argument("--grand-k", default="")
     ap.add_argument("--split-lg", type=int, default=0)
     ap.add_argument("--msm-lg", type=int, default=0)
+    ap.add_argument("--no-msm-plain", action="store_true")
+    ap.add_argument("--tableless-lg", type=int, default=0)
     ap.add_argument("--only-msm", action="store_true")
     ap.add_argument("--only-splits", action="store_true")
     ap.add_argument("--out", default=None)
@@ -609,7 +668,10 @@ def main() -> int:
             args.tree, "halo2_aes_tpu_torch", "ops", "cuda_msm.py")):
         out["msm_buckets"] = {"check": msm_buckets_check(dev),
                               "times": msm_buckets_times(dev, args.msm_lg,
-                                                         args.polys)}
+                                                         args.polys,
+                                                         not args.no_msm_plain)}
+    if args.tableless_lg:
+        out["msm_tableless"] = msm_tableless_times(dev, args.tableless_lg)
     if args.only_msm:
         return _emit(out, args.out)
     if args.split_lg:
